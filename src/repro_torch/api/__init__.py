@@ -1,0 +1,23 @@
+"""Public API: ``SketchedKRR`` + sampler/solver registries.
+
+    from repro_torch.api import SketchConfig, SketchedKRR
+    from repro_torch.core import RBFKernel
+
+    cfg = SketchConfig(kernel=RBFKernel(1.5), p=200, lam=1e-3)  # device="cuda"
+    model = SketchedKRR(cfg).fit(X, y)
+    y_hat = model.predict(X_test)
+
+Samplers: uniform, diagonal, rls_exact, rls_fast (the default: Theorem-4
+fast scores, then the Theorem-3 leverage draw). Solvers: exact, nystrom
+(the default), nystrom_regularized. Backends: hopper (the CUDA kernels),
+torch (plain PyTorch), auto (hopper on CUDA, torch on the CPU).
+"""
+from ..core.kernels import (BernoulliKernel, LinearKernel, PolynomialKernel,
+                            RBFKernel)
+from ..core.nystrom import ColumnSample
+from ..core.precision import Precision
+from .config import SketchConfig
+from .estimator import (NotFittedError, ServingState, SketchedKRR,
+                        serving_state_from_reference)
+from .samplers import SAMPLERS, SamplerOutput
+from .solvers import SOLVERS, NystromState

@@ -1,0 +1,273 @@
+"""KernelOps: pluggable executors for every kernel-matrix touch.
+
+The paper's pipeline only ever needs p columns of K, so all kernel
+evaluation flows through one seam, a ``KernelOps`` object. Samplers,
+solvers and ``SketchedKRR.predict``/``predict_batched`` take their kernel
+blocks from the backend configured on ``SketchConfig``.
+
+The protocol (all shapes: X (n, d), Z (p, d), B (n, p)):
+
+  ``columns(X, idx)``        C = K[:, idx] ∈ R^{n×p} — the §3.5 column block.
+  ``cross(X_test, Z)``       k(X_test, Z) ∈ R^{m×p} — test/landmark block.
+  ``matvec(X, Z, v)``        k(X, Z) @ v — the serving path.
+  ``rmatvec(X, Z, v)``       k(X, Z)ᵀ @ v.
+  ``gram_matvec(X, Z, v)``   k(X, Z)ᵀ (k(X, Z) @ v).
+  ``leverage_scores(B,λ,n)`` l̃_i = B_i (BᵀB + nλI)^{-1} B_iᵀ — eq. (9).
+
+Registered backends:
+
+  ``torch``   the plain reference: one PyTorch expression per block, on
+              whatever device the tensors live. Direct ``kernel.gram``
+              calls live only here.
+  ``hopper``  routes rbf/linear/poly blocks to the hand-written K1
+              ``kernel_block`` and the eq.-(9) scores to K2 ``rls_scores``
+              (``repro_torch.kernels``). On CUDA tensors the kernels launch
+              or raise; on CPU tensors the same calls take the kernels'
+              plain versions. Kernels without a kernel body (bernoulli)
+              use the dense formula per block.
+
+``backend="auto"`` resolves per device: CUDA → ``hopper``, CPU → ``torch``.
+
+Every executor carries a ``Precision`` policy: blocks are materialized in
+the data dtype, reductions run in ``accum_dtype``, the p×p factorizations
+in ``solve_dtype``. The out-of-core ``score_pass_*`` seam of the reference
+is not ported yet (ROADMAP item 5).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import Tensor
+
+from ..registry import Registry
+from .kernels import Kernel, LinearKernel, PolynomialKernel, RBFKernel
+from .precision import Precision, floored_jitter
+
+
+# ------------------------------------------------------- shared p×p algebra
+
+def _eye(p: int, like: Tensor) -> Tensor:
+    return torch.eye(p, dtype=like.dtype, device=like.device)
+
+
+def _jittered(W: Tensor, jitter: float) -> Tensor:
+    p = W.shape[0]
+    jitter = floored_jitter(jitter, W.dtype)
+    return 0.5 * (W + W.T) + jitter * (torch.trace(W) / p + 1.0) * _eye(p, W)
+
+
+def jittered_cholesky_ex(W: Tensor, jitter: float) -> tuple[Tensor, Tensor]:
+    """(L, info) for L Lᵀ = ½(W + Wᵀ) + jitter′·(tr(W)/p + 1)·I; ``info``
+    is non-zero when the factorization failed (L is then unusable).
+
+    jitter′ is the requested jitter floored at the dtype-aware minimum
+    (``precision.dtype_jitter_floor``) — the reference's one jitter
+    convention for every landmark-overlap factorization."""
+    return torch.linalg.cholesky_ex(_jittered(W, jitter))
+
+
+def jittered_cholesky(W: Tensor, jitter: float) -> Tensor:
+    """L with L Lᵀ = ½(W + Wᵀ) + jitter′·(tr(W)/p + 1)·I; raises when the
+    jittered matrix is not positive definite."""
+    return torch.linalg.cholesky(_jittered(W, jitter))
+
+
+def scores_against_gram(B: Tensor, G: Tensor, lam: float, n: int, *,
+                        solve_dtype=None) -> Tensor:
+    """Rows of B scored against a precomputed Gram G = BᵀB (eq. 9 split):
+    A = ½(G + Gᵀ) + nλI = L Lᵀ and l̃_i = ‖L⁻¹B_iᵀ‖². ``solve_dtype``
+    up-casts the factorization and the solve; scores come back in B's
+    dtype."""
+    p = B.shape[1]
+    out_dtype = B.dtype
+    if solve_dtype is not None:
+        B, G = B.to(solve_dtype), G.to(solve_dtype)
+    A = 0.5 * (G + G.T) + n * lam * _eye(p, B)
+    Lchol = torch.linalg.cholesky(A)
+    V = torch.linalg.solve_triangular(Lchol, B.T, upper=False)   # (p, n)
+    return torch.sum(V * V, dim=0).to(out_dtype)
+
+
+def reference_leverage_scores(B: Tensor, lam: float, n: int) -> Tensor:
+    """l̃_i = B_i (BᵀB + nλI)^{-1} B_iᵀ — the plain eq.-(9) evaluation."""
+    return scores_against_gram(B, B.T @ B, lam, n)
+
+
+# ------------------------------------------------------------- the protocol
+
+@dataclasses.dataclass(frozen=True)
+class KernelOps:
+    """Base executor: a kernel bound to a precision policy.
+
+    Subclasses override ``cross`` (the one primitive every block derives
+    from) and whichever derived ops they can do better than the generic
+    compositions below.
+    """
+
+    kernel: Kernel
+    precision: Precision = Precision()
+
+    name = "base"
+
+    # ------------------------------------------------- precision plumbing
+
+    def _cast_data(self, *arrays: Tensor) -> tuple[Tensor, ...]:
+        """Arrays in the policy's data (block) dtype; no-op when unset."""
+        dd = self.precision.data()
+        if dd is None:
+            return arrays
+        return tuple(a.to(dd) for a in arrays)
+
+    def _accum(self, dtype):
+        """Accumulation dtype for reductions over ``dtype`` (or None)."""
+        return self.precision.accum_for(dtype)
+
+    def _solve(self, dtype):
+        """p×p factorization dtype for ``dtype`` data (or None)."""
+        return self.precision.solve_for(dtype)
+
+    def _gram(self, X: Tensor, Z: Tensor) -> Tensor:
+        """One kernel block under the accumulation policy: arithmetic in
+        ``accum_dtype``, result materialized in the inputs' dtype."""
+        block = torch.promote_types(X.dtype, Z.dtype)
+        acc = self._accum(block)
+        if acc is None:
+            return self.kernel.gram(X, Z)
+        return self.kernel.gram(X.to(acc), Z.to(acc)).to(block)
+
+    # ------------------------------------------------------- the protocol
+
+    def cross(self, X_test: Tensor, Z: Tensor) -> Tensor:
+        """k(X_test, Z) ∈ R^{m×p}; concrete backends implement it."""
+        raise NotImplementedError
+
+    def columns(self, X: Tensor, idx: Tensor) -> Tensor:
+        """C = K[:, idx] — only the sampled columns, never forming K."""
+        return self.cross(X, X[idx])
+
+    def _contract(self, Kb: Tensor, v: Tensor) -> tuple[Tensor, Tensor]:
+        acc = self._accum(torch.promote_types(Kb.dtype, v.dtype))
+        if acc is None:
+            return Kb, v
+        return Kb.to(acc), v.to(acc)
+
+    def matvec(self, X: Tensor, Z: Tensor, v: Tensor) -> Tensor:
+        """k(X, Z) @ v — contraction in ``accum_dtype`` when set."""
+        Kb, v = self._contract(self.cross(X, Z), v)
+        return Kb @ v
+
+    def rmatvec(self, X: Tensor, Z: Tensor, v: Tensor) -> Tensor:
+        """k(X, Z)ᵀ @ v."""
+        Kb, v = self._contract(self.cross(X, Z), v)
+        return Kb.T @ v
+
+    def gram_matvec(self, X: Tensor, Z: Tensor, v: Tensor) -> Tensor:
+        """k(X, Z)ᵀ (k(X, Z) @ v) — one CᵀC·v pass, CᵀC never formed."""
+        Kb, v = self._contract(self.cross(X, Z), v)
+        return Kb.T @ (Kb @ v)
+
+    def leverage_scores(self, B: Tensor, lam: float, n: int) -> Tensor:
+        """l̃_i = B_i (BᵀB + nλI)^{-1} B_iᵀ; the Gram accumulates in
+        ``accum_dtype`` under the policy."""
+        acc = self._accum(B.dtype)
+        G = B.T @ B if acc is None else B.T.to(acc) @ B.to(acc)
+        return self.scores_given_gram(B, G, lam, n)
+
+    def scores_given_gram(self, B: Tensor, G: Tensor, lam: float,
+                          n: int) -> Tensor:
+        """Rows of B scored against an externally supplied Gram G = BᵀB."""
+        return scores_against_gram(B, G, lam, n,
+                                   solve_dtype=self._solve(B.dtype))
+
+
+BACKENDS: Registry[type] = Registry("backend")
+
+
+@BACKENDS.register("torch")
+@dataclasses.dataclass(frozen=True)
+class TorchOps(KernelOps):
+    """Plain reference: one PyTorch expression per block — the only place
+    outside ``core/kernels.py`` where ``kernel.gram`` is called."""
+
+    name = "torch"
+
+    def cross(self, X_test: Tensor, Z: Tensor) -> Tensor:
+        X_test, Z = self._cast_data(X_test, Z)
+        return self._gram(X_test, Z)
+
+
+@BACKENDS.register("hopper")
+@dataclasses.dataclass(frozen=True)
+class HopperOps(KernelOps):
+    """Routes blocks to the hand-written Hopper kernels
+    (``repro_torch.kernels``): K1 for rbf/linear/poly blocks, K2 for the
+    eq.-(9) scores."""
+
+    name = "hopper"
+
+    def _tile_acc(self, *dtypes) -> torch.dtype | None:
+        """Explicit accumulation dtype for the kernels, or None to keep
+        their built-in rule (f64 in ⇒ f64, else f32)."""
+        block = dtypes[0]
+        for dt in dtypes[1:]:
+            block = torch.promote_types(block, dt)
+        return self._accum(block)
+
+    def cross(self, X_test: Tensor, Z: Tensor) -> Tensor:
+        from ..kernels import ops as kops
+        X_test, Z = self._cast_data(X_test, Z)
+        acc = self._tile_acc(X_test.dtype, Z.dtype)
+        k = self.kernel
+        if isinstance(k, RBFKernel):
+            return kops.rbf_block(X_test, Z, bandwidth=k.bandwidth,
+                                  acc_dtype=acc)
+        if isinstance(k, LinearKernel):
+            return kops.linear_block(X_test, Z, acc_dtype=acc)
+        if isinstance(k, PolynomialKernel):
+            return kops.poly_block(X_test, Z, degree=k.degree, scale=k.scale,
+                                   offset=k.offset, acc_dtype=acc)
+        return self._gram(X_test, Z)
+
+    def scores_given_gram(self, B: Tensor, G: Tensor, lam: float,
+                          n: int) -> Tensor:
+        # M = (G + nλI)^{-1} once (p×p, O(p³)), then K2's fused rowwise
+        # B M Bᵀ — one pass over B, no n×p intermediate. The inverse runs
+        # in solve_dtype when the policy widens it; K2 reads M in its
+        # accumulation dtype.
+        from ..kernels import ops as kops
+        p = B.shape[1]
+        sd = self._solve(B.dtype)
+        wd = B.dtype if sd is None else sd
+        A = 0.5 * (G + G.T).to(wd) + n * lam * torch.eye(
+            p, dtype=wd, device=B.device)
+        c = torch.linalg.cholesky(A)
+        M = torch.cholesky_solve(torch.eye(p, dtype=wd, device=B.device), c)
+        return kops.rls_scores(B, M, acc_dtype=self._tile_acc(B.dtype, wd))
+
+
+# -------------------------------------------------------------- resolution
+
+def resolve_backend(name: str = "auto",
+                    device: str | torch.device = "cuda") -> str:
+    """Registry name for ``name``; ``"auto"`` → ``hopper`` on a CUDA
+    device, ``torch`` on the CPU."""
+    if name == "auto":
+        return "hopper" if torch.device(device).type == "cuda" else "torch"
+    BACKENDS.get(name)  # raises KeyError listing the available names
+    return name
+
+
+def ops_for(kernel: Kernel, backend: str = "auto", *,
+            device: str | torch.device = "cuda",
+            precision: Precision = Precision()) -> KernelOps:
+    """Construct the ``KernelOps`` executor for a kernel + backend name."""
+    return BACKENDS.get(resolve_backend(backend, device))(
+        kernel=kernel, precision=precision)
+
+
+def ops_for_config(config) -> KernelOps:
+    """Executor for a ``SketchConfig`` (``kernel``/``backend``/``device``/
+    ``precision``)."""
+    return ops_for(config.kernel, config.backend, device=config.device,
+                   precision=config.precision)

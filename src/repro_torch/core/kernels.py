@@ -1,0 +1,144 @@
+"""Kernel functions k(x, x') and kernel matrices (dense tensors).
+
+Every kernel exposes a pairwise ``gram(X, Z)`` (the n×m cross kernel
+matrix) and a ``diag(X)`` (K_ii, needed by the Theorem-4 squared-length
+sampler p_i = K_ii / Tr(K)). These are the plain PyTorch formulas: the
+``torch`` backend calls them directly, and the ``hopper`` backend replaces
+the rbf/linear/poly blocks with the ``kernel_block`` CUDA kernel.
+
+Kernels implemented:
+  * ``LinearKernel``          k(x,z) = x.z
+  * ``RBFKernel``             k(x,z) = exp(-||x-z||^2 / (2 h^2))
+  * ``PolynomialKernel``      k(x,z) = (x.z / h + c)^d
+  * ``BernoulliKernel``       the paper's synthetic-experiment kernel on [0,1]:
+        k(x,z) = B_{2b}(x - z - floor(x - z)) / (2b)!
+
+Sparse (CSR) inputs are not ported yet (ROADMAP item 8) and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Protocol
+
+import torch
+from torch import Tensor
+
+
+class Kernel(Protocol):
+    def gram(self, X: Tensor, Z: Tensor) -> Tensor: ...
+
+    def diag(self, X: Tensor) -> Tensor: ...
+
+
+def require_dense(*arrays) -> None:
+    """Raise for sparse operands: the CSR path is ROADMAP item 8."""
+    for a in arrays:
+        if hasattr(a, "indptr") or getattr(a, "layout",
+                                           torch.strided) != torch.strided:
+            raise NotImplementedError(
+                "sparse (CSR) kernel operands are not ported to repro_torch "
+                "yet (ROADMAP item 8: sparse inputs); pass a dense tensor")
+
+
+def _sqdist(X: Tensor, Z: Tensor) -> Tensor:
+    """Pairwise squared euclidean distances, numerically clamped at 0."""
+    xx = torch.sum(X * X, dim=-1)[:, None]
+    zz = torch.sum(Z * Z, dim=-1)[None, :]
+    return torch.clamp_min(xx + zz - 2.0 * (X @ Z.T), 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearKernel:
+    def gram(self, X: Tensor, Z: Tensor) -> Tensor:
+        require_dense(X, Z)
+        return X @ Z.T
+
+    def diag(self, X: Tensor) -> Tensor:
+        require_dense(X)
+        return torch.sum(X * X, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RBFKernel:
+    bandwidth: float = 1.0
+
+    def gram(self, X: Tensor, Z: Tensor) -> Tensor:
+        require_dense(X, Z)
+        return torch.exp(-_sqdist(X, Z) / (2.0 * self.bandwidth**2))
+
+    def diag(self, X: Tensor) -> Tensor:
+        require_dense(X)
+        return torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class PolynomialKernel:
+    degree: int = 2
+    scale: float = 1.0
+    offset: float = 1.0
+
+    def gram(self, X: Tensor, Z: Tensor) -> Tensor:
+        require_dense(X, Z)
+        return (X @ Z.T / self.scale + self.offset) ** self.degree
+
+    def diag(self, X: Tensor) -> Tensor:
+        require_dense(X)
+        return (torch.sum(X * X, dim=-1) / self.scale
+                + self.offset) ** self.degree
+
+
+@functools.lru_cache(maxsize=None)
+def _bernoulli_poly_coeffs(m: int) -> tuple[float, ...]:
+    """Coefficients (ascending powers) of the Bernoulli polynomial B_m(x):
+    B_m(x) = Σ_k C(m,k) B_{m-k} x^k with B_j the Bernoulli numbers."""
+    B = [1.0]
+    for j in range(1, m + 1):
+        s = 0.0
+        for k in range(j):
+            s += math.comb(j + 1, k) * B[k]
+        B.append(-s / (j + 1))
+    return tuple(math.comb(m, k) * B[m - k] for k in range(m + 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class BernoulliKernel:
+    """k(x,z) = B_{2b}(frac(x - z)) * (-1)^{b-1} / (2b)! on scalars in [0,1]
+    — the reproducing kernel of the periodic Sobolev space with b
+    square-integrable derivatives (PSD for all b)."""
+
+    b: int = 1
+
+    def _k1d(self, d: Tensor) -> Tensor:
+        m = 2 * self.b
+        frac = d - torch.floor(d)
+        acc = torch.zeros_like(frac)
+        for c in reversed(_bernoulli_poly_coeffs(m)):
+            acc = acc * frac + c
+        sign = (-1.0) ** (self.b - 1)
+        return sign * acc / math.factorial(m)
+
+    def gram(self, X: Tensor, Z: Tensor) -> Tensor:
+        require_dense(X, Z)
+        return self._k1d(X.reshape(-1)[:, None] - Z.reshape(-1)[None, :])
+
+    def diag(self, X: Tensor) -> Tensor:
+        require_dense(X)
+        return self._k1d(torch.zeros_like(X.reshape(-1)))
+
+
+def gram_matrix(kernel: Kernel, X: Tensor, Z: Tensor | None = None) -> Tensor:
+    """Full (or cross) kernel matrix. O(n m d) — use only for n,m ≲ 10^4."""
+    return kernel.gram(X, X if Z is None else Z)
+
+
+def kernel_columns(kernel: Kernel, X: Tensor, idx: Tensor, *,
+                   ops=None) -> Tensor:
+    """C = K[:, idx] — only the sampled columns, never forming K (§3.5).
+
+    ``ops`` is an optional ``KernelOps`` executor; when omitted this is the
+    dense plain evaluation."""
+    if ops is not None:
+        return ops.columns(X, idx)
+    return kernel.gram(X, X[idx])

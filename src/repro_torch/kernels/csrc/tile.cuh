@@ -1,0 +1,75 @@
+// Shared tiling for the port's two GEMM-shaped kernels (kernel_block.cu,
+// rls_scores.cu): a block of 256 threads arranged 16 x 16 owns a BM x BN
+// output tile and walks the contraction in BK-deep slabs staged through
+// shared memory. Thread (ty, tx) owns rows ty*TM .. ty*TM+TM-1 of the tile
+// (contiguous, so its A-operand reads merge into vector loads) and columns
+// tx, tx+16, ... (strided, so neighbouring threads read neighbouring words
+// of the B operand and store neighbouring output columns).
+//
+// All arithmetic is IEEE fma in the accumulation type Acc: float32 inputs
+// accumulate in float32 on the CUDA cores, never in TF32 on the tensor
+// cores.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro_tile {
+
+constexpr int TY = 16, TX = 16;
+constexpr int NT = TY * TX;   // threads per block
+constexpr int PAD = 4;        // keeps each staged row 16-byte aligned
+
+__device__ __forceinline__ float fma_(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+template <typename Acc> struct Tile;
+template <> struct Tile<float> {
+  static constexpr int BM = 128, BN = 128, BK = 16;
+};
+template <> struct Tile<double> {
+  static constexpr int BM = 64, BN = 64, BK = 16;
+};
+
+// Stage rows [row0, row0 + ROWS) x columns [k0, k0 + BK) of the row-major
+// (n_rows, ld) matrix A into S[k][row] (transposed), zero outside the
+// matrix, so ragged rows and a ragged contraction need no padding copies.
+template <typename T, typename Acc, int ROWS, int BK>
+__device__ __forceinline__ void stage_rows(Acc (*S)[ROWS + PAD],
+                                           const T* __restrict__ A,
+                                           int64_t row0, int64_t n_rows,
+                                           int k0, int k_len, int64_t ld) {
+  for (int e = threadIdx.x; e < ROWS * BK; e += NT) {
+    const int r = e / BK, c = e % BK;
+    const int64_t gr = row0 + r;
+    const int gc = k0 + c;
+    S[c][r] = (gr < n_rows && gc < k_len) ? Acc(A[gr * ld + gc]) : Acc(0);
+  }
+}
+
+// acc[i][j] += sum_k S_a[k][ty*TM + i] * S_b[k][tx + j*TX]
+template <typename Acc, int BM, int BN, int BK>
+__device__ __forceinline__ void tile_fma(Acc (*Sa)[BM + PAD],
+                                         Acc (*Sb)[BN + PAD],
+                                         Acc (&acc)[BM / TY][BN / TX]) {
+  constexpr int TM = BM / TY, TN = BN / TX;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+  for (int k = 0; k < BK; ++k) {
+    Acc a[TM], b[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = Sa[k][ty * TM + i];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) b[j] = Sb[k][tx + j * TX];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fma_(a[i], b[j], acc[i][j]);
+  }
+}
+
+}  // namespace repro_tile

@@ -1,0 +1,76 @@
+"""Dispatch between the hand-written kernels and their plain versions.
+
+A tensor on the CPU goes to the plain PyTorch version in ``ref`` (under the
+kernel's own accumulation rule, so both routes compute the same function).
+A CUDA tensor goes to the kernel, which launches or raises — there is no
+fallback. Any other device raises.
+"""
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from ..core.precision import to_dtype
+from . import ref
+from .rbf_block import default_acc, kernel_block
+from .rls_scores import rls_scores_fused
+
+
+def _on_cuda(*tensors: Tensor) -> bool:
+    """True for CUDA operands, False for CPU ones; anything else raises."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"operands on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel route for device {dev}")
+    return dev.type == "cuda"
+
+
+def _acc(dtype: torch.dtype, acc_dtype) -> torch.dtype:
+    return default_acc(dtype) if acc_dtype is None else to_dtype(acc_dtype)
+
+
+def _block(X: Tensor, Z: Tensor, kind: str, acc_dtype, plain, **params):
+    if _on_cuda(X, Z):
+        return kernel_block(X.contiguous(), Z.to(X.dtype).contiguous(),
+                            kind=kind, acc_dtype=acc_dtype, **params)
+    acc = _acc(X.dtype, acc_dtype)
+    return plain(X.to(acc), Z.to(acc)).to(X.dtype)
+
+
+def rbf_block(X: Tensor, Z: Tensor, *, bandwidth: float = 1.0,
+              acc_dtype=None) -> Tensor:
+    return _block(X, Z, "rbf", acc_dtype,
+                  lambda x, z: ref.rbf_block_ref(x, z, bandwidth),
+                  bandwidth=bandwidth)
+
+
+def linear_block(X: Tensor, Z: Tensor, *, acc_dtype=None) -> Tensor:
+    return _block(X, Z, "linear", acc_dtype, ref.linear_block_ref)
+
+
+def poly_block(X: Tensor, Z: Tensor, *, degree: int = 2, scale: float = 1.0,
+               offset: float = 1.0, acc_dtype=None) -> Tensor:
+    return _block(X, Z, "poly", acc_dtype,
+                  lambda x, z: ref.poly_block_ref(x, z, degree, scale, offset),
+                  degree=degree, scale=scale, offset=offset)
+
+
+def rls_scores(B: Tensor, M: Tensor, *, acc_dtype=None) -> Tensor:
+    """Fused rowwise l̃_i = B_i M B_iᵀ (eq. 9 given M = (BᵀB + nλI)^{-1})."""
+    if _on_cuda(B, M):
+        return rls_scores_fused(B.contiguous(), M, acc_dtype=acc_dtype)
+    acc = _acc(B.dtype, acc_dtype)
+    return ref.rls_scores_ref(B.to(acc), M.to(acc)).to(B.dtype)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last ``reset_launch_counts``."""
+    return {"kernel_block": kernel_block.launches,
+            "rls_scores": rls_scores_fused.launches}
+
+
+def reset_launch_counts() -> None:
+    kernel_block.launches = 0
+    rls_scores_fused.launches = 0

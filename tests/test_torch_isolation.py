@@ -1,0 +1,97 @@
+"""The PyTorch port stands alone, and its kernel wrappers keep the device
+rules.
+
+The port never imports JAX or the JAX package. The import check runs in a
+subprocess, because tests/conftest.py has already imported JAX into this
+one; the source scan covers every module of ``src/repro_torch`` and
+``chip_smoke.py``, including imports that only run inside functions.
+On the CPU the kernel wrappers never launch a kernel, a bf16 request for
+the card raises, and a device without a kernel route raises.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.kernels import ops, rbf_block, rls_scores
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SCANNED = {"repro_torch": sorted(PORT.glob("*.py")),
+           "chip_smoke.py": [ROOT / "chip_smoke.py"]}
+SCANNED.update({sub: sorted((PORT / sub).rglob("*.py"))
+                for sub in ("api", "core", "data", "kernels")})
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = ("import sys, repro_torch.api, repro_torch.core, "
+            "repro_torch.kernels.ops, repro_torch.data\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("part", sorted(SCANNED))
+def test_port_sources_never_import_jax_or_the_reference(part):
+    assert SCANNED[part], part
+    for path in SCANNED[part]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad = [m for m in names if _forbidden(m)]
+            assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+# ---------------------------------------------------------- device rules
+
+def test_cpu_tensors_never_launch_a_kernel():
+    ops.reset_launch_counts()
+    X = torch.randn(40, 5)
+    ops.rbf_block(X, X[:8], bandwidth=1.3)
+    ops.linear_block(X, X[:8])
+    ops.poly_block(X, X[:8], degree=3)
+    ops.rls_scores(X, torch.eye(5))
+    assert ops.launch_counts() == {"kernel_block": 0, "rls_scores": 0}
+
+
+def test_bf16_card_request_raises(monkeypatch):
+    # pretend the operands passed the device check: the dtype check is what
+    # must refuse bf16 before anything is built or launched
+    monkeypatch.setattr(rbf_block, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(rls_scores, "check_cuda", lambda *a: None)
+    ops.reset_launch_counts()
+    X = torch.zeros(4, 3, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        rbf_block.kernel_block(X, X)
+    with pytest.raises(TypeError, match="bf16"):
+        rls_scores.rls_scores_fused(torch.zeros(4, 3, dtype=torch.bfloat16),
+                                    torch.zeros(3, 3))
+    assert ops.launch_counts() == {"kernel_block": 0, "rls_scores": 0}
+
+
+def test_wrappers_refuse_cpu_tensors_and_dispatch_refuses_other_devices():
+    X = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        rbf_block.kernel_block(X, X)
+    with pytest.raises(ValueError, match="CUDA"):
+        rls_scores.rls_scores_fused(X, torch.zeros(3, 3))
+    meta = torch.empty(4, 3, device="meta")
+    with pytest.raises(ValueError, match="no kernel route"):
+        ops.rbf_block(meta, meta)
