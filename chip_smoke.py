@@ -3,30 +3,47 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA GPU
 
-Drives ``repro_torch`` (never the JAX package) through six phases and exits
-non-zero on any failure:
+Drives ``repro_torch`` (never the JAX package) through eight phases and
+exits non-zero on any failure:
 
   1. build     compile the CUDA kernels (``src/repro_torch/kernels/csrc``)
-               with nvcc for sm_90a; print the card's name and power limit.
+               with nvcc for sm_90a, one process per source, all at once;
+               print the card's name and power limit.
   2. k1        K1 ``kernel_block`` against its plain PyTorch version, rbf /
                linear / poly x {f32, f64} at ragged shapes, and the two
                mixed data/accumulation dtype builds.
   3. k2        K2 ``rls_scores`` against its plain version, {f32, f64} x
                p in {37, 600, 2048}, and the two mixed builds.
-  4. main      the paper's fit -> predict path at full size: MSD-shaped data
+  4. k3        K3 ``sparse_cross`` against its plain version, rbf / linear /
+               poly x {f32, f64} and the two mixed builds at a ragged CSR
+               shape (empty rows, padding slots past indptr[-1]), at
+               (8, 8, 1), and at one full chunk of the sparse cell.
+  5. main      the paper's fit -> predict path at full size: MSD-shaped data
                (n = 463,715 train, 51,630 test, d = 90) from
                ``pumadyn_like(dim=90, seed=0)``, SketchConfig(RBFKernel(6.0),
                p=2048, lam=1e-6) with the defaults rls_fast / nystrom / auto,
                fit then predict_batched(batch_size=256); launch counts are
                zeroed just before and read just after.
-  5. parity    the same fit at n = 20,000 through backend "hopper" and
+  6. parity    the same fit at n = 20,000 through backend "hopper" and
                backend "torch" on the card, with the same draws injected.
-  6. summary   each kernel's time at the main path's shapes (CUDA events),
-               its plain version's, the matching PyTorch library call's, and
+  7. sparse    the out-of-core CSR path at the RCV1 shape (677,399 train and
+               20,242 test rows, d = 47,236, about 74 values per row) from
+               ``rcv1_like(seed=0)``: SketchConfig(RBFKernel(1.0), p=2048,
+               lam=1e-6, chunk_rows=131,072, f32 data with f64
+               accumulation and p×p solves),
+               fit(X_csr, y) then predict(X_csr_test), launch counts zeroed
+               before and read after; then, on the first 20,000 rows in
+               chunks of 8,192 with the same draws injected, hopper against
+               torch and the CSR fit against the dense fit of the same rows
+               densified (K3 against K1); fit(SparseChunkSource) against
+               fit(CsrMatrix), and partial_fit over three chunks + finalize.
+  8. summary   each kernel's time at its path's shapes (CUDA events), its
+               plain version's, the matching PyTorch library call's, and
                its bound; one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 
-``--phases`` runs a subset (for development); the default runs all six.
+``--phases`` runs a subset (``build,k3,sparse`` is the short call for the
+sparse path); the default runs all eight.
 Results are also written to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -39,16 +56,37 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "k1", "k2", "main", "parity", "summary")
+PHASES = ("build", "k1", "k2", "k3", "main", "parity", "sparse",
+          "summary")
 
-# H100 SXM data sheet: float32 on the CUDA cores (IEEE, no tensor cores),
-# float64 on the CUDA cores, HBM3 bandwidth
-PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+# H100 SXM data sheet, the card's peak rate for each type: float32 on the
+# CUDA cores (IEEE, no tensor cores), float64 on the FP64 tensor cores (the
+# CUDA cores alone give half of it); HBM3 bandwidth
+PEAK_OPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
 
 N_TRAIN, N_TEST, DIM = 463_715, 51_630, 90
 P, LAM, BANDWIDTH = 2048, 1e-6, 6.0
-N_PARITY = 20_000
+N_PARITY, N_PARITY_TEST = 20_000, 4096
+# the RCV1 shape as LIBSVM's rcv1.binary lists it, train and test swapped as
+# large-n kernel work does
+RCV1_TRAIN, RCV1_TEST, RCV1_DIM = 677_399, 20_242, 47_236
+CHUNK_ROWS, RCV1_BANDWIDTH = 131_072, 1.0
+# float32 data and blocks, float64 accumulation and p×p solves. RBF(1.0) on
+# unit-norm TF-IDF rows is e^-1 (a constant) plus small terms, so its
+# Woodbury system at lam = 1e-6 is too ill-conditioned for float32: at
+# n = 20,000, with the same draws, float32 throughout gives a test MSE of
+# 1.31 in the port and 2.33 in the JAX package against var(f*) 1.02, where
+# float64 solves give 0.783 and float64 throughout 0.786 in both
+# (tools/sparse_precision_probe.py, tools/sparse_precision_reference.py);
+# at the full n the float64 Cholesky of that system failed on
+# float32-accumulated Gram statistics (on an H100, float64 solves alone).
+# float64 accumulation makes K3 run its float32-data / float64-accumulation
+# build.
+SPARSE_PRECISION = dict(data_dtype="f32", accum_dtype="f64", solve_dtype="f64")
+# the parity fits stream 20,000 rows in chunks of 8,192 (a padded tail
+# included): chunks of CHUNK_ROWS would pad the dense rows to 24.8 GB
+PARITY_CHUNK = 8192
 
 K1_TOL = {"float32": 2e-5, "float64": 1e-12}      # atol on blocks
 K2_RTOL = {"float32": 2e-4, "float64": 1e-12}     # elementwise rtol on scores
@@ -62,6 +100,16 @@ MIXED = (("float32", "float64"), ("float64", "float32"))
 # 1.2e-5 (CPU probe, float64-exact blocks rounded to float32 vs float32
 # arithmetic); the tolerances leave a margin of about 6 over that.
 PARITY_TOL = {"scores": 1e-4, "predictions": 2e-2, "beta": 2e-2}
+# the sparse cell's parity (hopper vs torch, and the CSR fit vs the dense
+# fit of the same rows densified) compares float32 blocks accumulated in
+# float64 by two implementations, so they differ at most by one float32
+# rounding where a float64 sum lands next to a rounding boundary. If every
+# entry of the CSR rows' blocks moved by one rounding, scores would move by
+# 2.1e-3 (max relative, the smallest scores), predictions by 4.2e-6 and β
+# by 3.1e-6 (tools/sparse_precision_probe.py, n = 20,000, this cell's
+# policy); the tolerances leave a margin of about 5 over that worst case
+SPARSE_PARITY_TOL = {"scores": 1e-2, "predictions": 2e-5, "beta": 2e-5}
+K3_TOL = {"float32": 2e-5, "float64": 1e-12}      # atol on blocks
 
 
 def log(msg: str) -> None:
@@ -233,6 +281,141 @@ def phase_k2(res: dict) -> None:
     res["k2_check_max_rel_err"] = worst
 
 
+def _rcv1(keep: dict) -> dict:
+    """The sparse cell's rows (made once per run): train/test ``CsrMatrix``
+    on the host in float32, targets and the noiseless f* of the test rows."""
+    if "rcv1" in keep:
+        return keep["rcv1"]
+    import numpy as np
+    from repro_torch.data import CsrMatrix, rcv1_like
+    t0 = time.perf_counter()
+    d = rcv1_like(RCV1_TRAIN + RCV1_TEST, dim=RCV1_DIM, seed=0)
+    ptr, cut = d["indptr"], int(d["indptr"][RCV1_TRAIN])
+    data = d["data"].astype(np.float32)
+    train = CsrMatrix(data[:cut], d["indices"][:cut], ptr[:RCV1_TRAIN + 1],
+                      RCV1_DIM)
+    test = CsrMatrix(data[cut:], d["indices"][cut:],
+                     (ptr[RCV1_TRAIN:] - cut).astype(np.int32), RCV1_DIM)
+    keep["rcv1"] = dict(
+        train=train, test=test, y=d["y"][:RCV1_TRAIN].astype(np.float32),
+        f_test=d["f_star"][RCV1_TRAIN:].astype(np.float32),
+        seconds=time.perf_counter() - t0)
+    lengths = np.diff(ptr)
+    log(f"[data] rcv1_like: {RCV1_TRAIN} train + {RCV1_TEST} test rows, "
+        f"d={RCV1_DIM}, {cut} + {data.shape[0] - cut} stored values (rows "
+        f"of {lengths.min()} to {lengths.max()}, mean {lengths.mean():.1f}), "
+        f"made in {keep['rcv1']['seconds']:.1f} s")
+    return keep["rcv1"]
+
+
+def _csr_rows(X, lo: int, hi: int):
+    """Rows [lo, hi) of a host ``CsrMatrix``, sliced through indptr."""
+    from repro_torch.data import CsrMatrix
+    a, b = int(X.indptr[lo]), int(X.indptr[hi])
+    return CsrMatrix(X.data[a:b], X.indices[a:b], X.indptr[lo:hi + 1] - a,
+                     X.n_cols)
+
+
+def _full_chunk(keep: dict):
+    """One full chunk of the sparse cell on the card (the first one of its
+    ``SparseChunkSource``) and 2048 landmark rows of the training set."""
+    if "chunk" not in keep:
+        import torch
+        from repro_torch.data import SparseChunkSource
+        rc = _rcv1(keep)
+        first = next(SparseChunkSource(rc["train"], chunk_rows=CHUNK_ROWS)
+                     .chunks())
+        idx = torch.randperm(RCV1_TRAIN, generator=torch.Generator()
+                             .manual_seed(5))[:P]
+        keep["chunk"] = first.X.cast(torch.float32, "cuda")
+        keep["chunk_Z"] = rc["train"][idx].to("cuda")
+    return keep["chunk"], keep["chunk_Z"]
+
+
+def _ragged_csr(g, dtype):
+    """1,031 rows over d = 5,000: 0 to 99 values a row (every 17th row
+    empty), sorted distinct column ids, and 37 padding slots past
+    indptr[-1] holding NaN — a kernel that read them would show it."""
+    import numpy as np
+    import torch
+    from repro_torch.data import CsrMatrix
+    n, d = 1031, 5000
+    lengths = g.integers(0, 100, n)
+    lengths[::17] = 0
+    cols = [np.sort(g.choice(d, k, replace=False)) for k in lengths]
+    indices = np.concatenate(cols + [np.zeros(37, np.int64)]).astype(np.int32)
+    data = np.concatenate([g.standard_normal(int(lengths.sum())) / 50 ** 0.5,
+                           np.full(37, np.nan)])
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    return CsrMatrix(data, indices, indptr, d).cast(dtype, "cuda")
+
+
+def _k3_cases(X, Z, acc, h):
+    """(kind, kernel kwargs, plain block under accumulation ``acc``)."""
+    from repro_torch.kernels import ref
+    cases = {"rbf": dict(bandwidth=h), "linear": {},
+             "poly": dict(degree=3, scale=1.0, offset=1.0)}
+    return [(kind, kw, ref.sparse_kernel_block_ref(
+        X.data.to(acc), X.indices, X.indptr, Z.to(acc), kind=kind, **kw))
+        for kind, kw in cases.items()]
+
+
+def phase_k3(res: dict, keep: dict) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.data import CsrMatrix
+    from repro_torch.kernels.sparse_block import sparse_cross
+    g = np.random.default_rng(3)
+    worst = {}
+
+    def run(label, X, Z, dtype, acc, h, tol):
+        for kind, kw, want in _k3_cases(X, Z, acc, h):
+            got = sparse_cross(X.data, X.indices, X.indptr, Z, kind=kind,
+                               acc_dtype=acc, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want.to(dtype)).abs().max())
+            name = str(dtype).removeprefix("torch.")
+            if acc != dtype:
+                name += "/" + str(acc).removeprefix("torch.")
+            log(f"[k3] {kind:6s} {name} {label} max|Δ|={err:.3e} "
+                f"(atol {tol:g})")
+            check(got.dtype == dtype and got.shape == (X.shape[0],
+                                                      Z.shape[0]),
+                  f"k3 {kind} {name} {label} returned {got.dtype} "
+                  f"{tuple(got.shape)}")
+            check(err <= tol, f"k3 {kind} {name} {label}: max|Δ| {err:.3e} "
+                  f"> {tol:g}")
+            worst[f"{kind}.{name}"] = max(worst.get(f"{kind}.{name}", 0), err)
+
+    # ragged: landmarks ~ N(0, 1/50), so |z|^2 ≈ 100; bandwidth 8 keeps the
+    # rbf values O(1)
+    for dtype in (torch.float32, torch.float64):
+        X = _ragged_csr(g, dtype)
+        Z = torch.as_tensor(g.standard_normal((257, 5000)) / 50 ** 0.5,
+                            dtype=dtype, device="cuda")
+        run("(rows,p,d)=(1031,257,5000) ragged", X, Z, dtype, dtype, 8.0,
+            K3_TOL[str(dtype).removeprefix("torch.")])
+        # the degenerate block: 8 rows, 8 landmarks, one feature
+        Xs = CsrMatrix.from_dense(g.standard_normal((8, 1))).cast(dtype,
+                                                                  "cuda")
+        Zs = torch.as_tensor(g.standard_normal((8, 1)), dtype=dtype,
+                             device="cuda")
+        run("(8,8,1)", Xs, Zs, dtype, dtype, 1.0,
+            K3_TOL[str(dtype).removeprefix("torch.")])
+    for dt_name, acc_name in MIXED:
+        dtype, acc = getattr(torch, dt_name), getattr(torch, acc_name)
+        X = _ragged_csr(g, dtype)
+        Z = torch.as_tensor(g.standard_normal((257, 5000)) / 50 ** 0.5,
+                            dtype=dtype, device="cuda")
+        run("(1031,257,5000) ragged", X, Z, dtype, acc, 8.0,
+            K3_TOL["float32"])
+    X, Z = _full_chunk(keep)
+    run(f"full chunk (rows,p,d)=({X.shape[0]},{Z.shape[0]},{RCV1_DIM}), "
+        f"{int(X.indptr[-1])} values", X, Z, torch.float32, torch.float32,
+        RCV1_BANDWIDTH, K3_TOL["float32"])
+    res["k3_check_max_abs_err"] = worst
+
+
 def _msd_data():
     import numpy as np
     from repro_torch.data import pumadyn_like
@@ -256,6 +439,7 @@ def phase_main(res: dict, keep: dict) -> None:
     log(f"[main] {model!r}, backend -> {model.ops().name}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # what earlier phases keep
     kops.reset_launch_counts()
     t0 = time.perf_counter()
     model.fit(Xtr, ytr)
@@ -267,7 +451,7 @@ def phase_main(res: dict, keep: dict) -> None:
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
     counts = kops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     f = torch.as_tensor(fte, device="cuda")
     mse = float(torch.mean((yhat - f) ** 2))
     var_f = float(torch.var(f))
@@ -275,7 +459,8 @@ def phase_main(res: dict, keep: dict) -> None:
     log(f"[main] fit {fit_s:.2f} s (launches {fit_counts}); predict_batched "
         f"{pred_s:.2f} s = {N_TEST / pred_s:.0f} predictions/s; launches "
         f"after predict {counts}")
-    log(f"[main] peak device memory {peak / 1e9:.2f} GB; test MSE vs f* "
+    log(f"[main] peak device memory {peak / 1e9:.2f} GB above the "
+        f"{held / 1e9:.2f} GB earlier phases hold; test MSE vs f* "
         f"{mse:.4f} against var(f*) {var_f:.4f}; unique sketch columns "
         f"{int(torch.unique(model.sample().idx).numel())} of {P}")
     check(yhat.shape == (N_TEST,), f"predictions shape {tuple(yhat.shape)}")
@@ -289,9 +474,11 @@ def phase_main(res: dict, keep: dict) -> None:
     check(mse < var_f, f"test MSE {mse:.4f} not below var(f*) {var_f:.4f}")
     res["main"] = dict(fit_s=fit_s, predict_s=pred_s,
                        predictions_per_s=N_TEST / pred_s,
-                       peak_bytes=peak, test_mse=mse, var_f_star=var_f,
-                       launches=counts, fit_launches=fit_counts)
-    prof = _profile(model, Xtr, ytr, Xte)
+                       peak_bytes=peak, held_bytes=held, test_mse=mse,
+                       var_f_star=var_f, launches=counts,
+                       fit_launches=fit_counts)
+    prof = _profile(lambda: (model.fit(Xtr, ytr),
+                             model.predict_batched(Xte, batch_size=256)))
     # the profiler's host cost inflates its own wall clock: the busy share
     # that means something is against the unprofiled run above
     prof["busy_share_of_unprofiled_wall"] = (
@@ -313,7 +500,7 @@ def phase_parity(res: dict, keep: dict) -> None:
     from repro_torch.api import RBFKernel, SketchConfig, SketchedKRR
     from repro_torch.core.leverage import draw_landmarks
     Xtr, ytr, Xte = keep["Xtr"][:N_PARITY], keep["ytr"][:N_PARITY], \
-        keep["Xte"][:4096]
+        keep["Xte"][:N_PARITY_TEST]
     cfg = SketchConfig(RBFKernel(BANDWIDTH), p=P, lam=LAM)
     idx = draw_landmarks(torch.Generator().manual_seed(3),
                          torch.full((N_PARITY,), 1.0 / N_PARITY), P)
@@ -339,17 +526,167 @@ def phase_parity(res: dict, keep: dict) -> None:
     res["parity"] = errs
 
 
-def _profile(model, Xtr, ytr, Xte) -> dict:
-    """Device time by kernel over one more fit + predict_batched, under
-    ``torch.profiler`` (CUPTI), and the device's busy share of the wall."""
+def phase_sparse(res: dict, keep: dict) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.api import (Precision, RBFKernel, SketchConfig,
+                                 SketchedKRR)
+    from repro_torch.core.leverage import draw_landmarks
+    from repro_torch.data import SparseChunkSource
+    from repro_torch.kernels import ops as kops
+    rc = _rcv1(keep)
+    cfg = SketchConfig(RBFKernel(RCV1_BANDWIDTH), p=P, lam=LAM,
+                       chunk_rows=CHUNK_ROWS,
+                       precision=Precision(**SPARSE_PRECISION))
+    model = SketchedKRR(cfg)
+    log(f"[sparse] {model!r}, chunk_rows={CHUNK_ROWS}, backend -> "
+        f"{model.ops().name}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # what earlier phases keep
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(rc["train"], rc["y"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = kops.launch_counts()
+    t0 = time.perf_counter()
+    yhat = model.predict(rc["test"])
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    f = torch.as_tensor(rc["f_test"], device="cuda")
+    mse = float(torch.mean((yhat - f) ** 2))
+    var_f = float(torch.var(f))
+    log(f"[sparse] fit {fit_s:.2f} s (launches {fit_counts}); predict "
+        f"{pred_s:.3f} s = {RCV1_TEST / pred_s:.0f} predictions/s; launches "
+        f"after predict {counts}")
+    log(f"[sparse] peak device memory {peak / 1e9:.2f} GB above the "
+        f"{held / 1e9:.2f} GB earlier phases hold; test MSE vs f* "
+        f"{mse:.4f} against var(f*) {var_f:.4f}; unique sketch columns "
+        f"{int(torch.unique(model.sample().idx).numel())} of {P}")
+    check(yhat.shape == (RCV1_TEST,), f"predictions shape {tuple(yhat.shape)}")
+    check(bool(torch.isfinite(yhat).all()), "non-finite predictions")
+    check(bool(torch.isfinite(model.scores()).all()), "non-finite scores")
+    check(bool(torch.isfinite(model.state().beta).all()), "non-finite beta")
+    check(counts["sparse_cross"] >= 19,
+          f"sparse_cross launched {counts['sparse_cross']} times (< 19)")
+    check(counts["rls_scores"] == 0,
+          f"rls_scores launched {counts['rls_scores']} times on the sparse "
+          "path (expected 0)")
+    check(counts["kernel_block"] >= 2,
+          f"kernel_block launched {counts['kernel_block']} times (< 2)")
+    check(mse < var_f, f"test MSE {mse:.4f} not below var(f*) {var_f:.4f}")
+    res["sparse"] = dict(fit_s=fit_s, predict_s=pred_s,
+                         predictions_per_s=RCV1_TEST / pred_s,
+                         peak_bytes=peak, held_bytes=held, test_mse=mse,
+                         var_f_star=var_f, launches=counts,
+                         fit_launches=fit_counts, data_s=rc["seconds"])
+    prof = _profile(lambda: (model.fit(rc["train"], rc["y"]),
+                             model.predict(rc["test"])))
+    prof["busy_share_of_unprofiled_wall"] = (
+        prof["busy_us"] / 1e6 / (fit_s + pred_s))
+    res["sparse"]["profile"] = prof
+    log(f"[sparse] profiled fit + predict: device busy "
+        f"{prof['busy_us'] / 1e3:.1f} ms = "
+        f"{100 * prof['busy_share_of_unprofiled_wall']:.1f} % of the "
+        f"unprofiled {1e3 * (fit_s + pred_s):.0f} ms (profiled wall "
+        f"{prof['wall_us'] / 1e3:.0f} ms)")
+    for row in prof["kernels"]:
+        log(f"[sparse]   {row['device_us'] / 1e3:9.2f} ms  "
+            f"x{row['calls']:<4d} {row['name']}")
+    keep["sparse_Z"] = model.state().landmarks
+
+    # parity on the first N_PARITY rows, the same draws injected: the card's
+    # hopper against its torch, and the CSR fit against the dense fit of the
+    # same rows densified (K3 blocks against K1 blocks, same driver)
+    sub, y_sub = _csr_rows(rc["train"], 0, N_PARITY), rc["y"][:N_PARITY]
+    test = _csr_rows(rc["test"], 0, N_PARITY_TEST)
+    idx = draw_landmarks(torch.Generator().manual_seed(3),
+                         torch.full((N_PARITY,), 1.0 / N_PARITY), P)
+    cfg = cfg.replace(chunk_rows=PARITY_CHUNK)
+    hop = SketchedKRR(cfg.replace(backend="hopper")).fit(
+        sub, y_sub, score_landmarks=idx)
+    draws = dict(score_landmarks=idx, sample=hop.sample())
+    # the launch counts show which blocks each fit took: the plain sparse
+    # contraction (no kernel), K3, or K1 on the densified rows
+    kops.reset_launch_counts()
+    plain = SketchedKRR(cfg.replace(backend="torch")).fit(sub, y_sub, **draws)
+    check(sum(kops.launch_counts().values()) == 0,
+          f"the torch backend launched {kops.launch_counts()}")
+    dense_rows = sub.todense().numpy()
+    dense = SketchedKRR(cfg.replace(backend="hopper")).fit(
+        dense_rows, y_sub, **draws)
+    dense_counts = kops.launch_counts()
+    check(dense_counts["sparse_cross"] == 0
+          and dense_counts["kernel_block"] > 0,
+          f"the dense fit launched {dense_counts}")
+    dense_test = test.todense().to("cuda")
+    del dense_rows
+    y_h = hop.predict(test)
+    outs = {"torch": (plain.scores(), plain.state().beta,
+                      plain.predict(test)),
+            "dense": (dense.scores(), dense.state().beta,
+                      dense.predict(dense_test))}
+    torch.cuda.synchronize()
+    errs = {}
+    for other, (s_o, b_o, y_o) in outs.items():
+        errs[other] = {
+            "scores": float(((hop.scores() - s_o).abs() / s_o.abs()).max()),
+            "predictions": float((y_h - y_o).abs().max() / y_o.abs().max()),
+            "beta": float(torch.linalg.norm(hop.state().beta - b_o)
+                          / torch.linalg.norm(b_o)),
+        }
+        for key, err in errs[other].items():
+            log(f"[sparse] parity CSR hopper vs {other} at n={N_PARITY}: "
+                f"{key} {err:.3e} (tolerance {SPARSE_PARITY_TOL[key]:g})")
+    for other, e in errs.items():
+        for key, err in e.items():
+            check(err <= SPARSE_PARITY_TOL[key], f"sparse parity vs {other} "
+                  f"{key}: {err:.3e} > {SPARSE_PARITY_TOL[key]:g}")
+    res["sparse"]["parity"] = errs
+
+    # the other two entry points on the card: fit(source) is the CSR fit
+    # bit for bit at equal chunk_rows; partial_fit over three chunks, then
+    # finalize, predicts through K3 and learns
+    src = SparseChunkSource(sub, y_sub, chunk_rows=PARITY_CHUNK)
+    via_source = SketchedKRR(cfg.replace(backend="hopper")).fit(src, **draws)
+    check(torch.equal(via_source.state().beta, hop.state().beta),
+          "fit(SparseChunkSource) differs from fit(CsrMatrix)")
+    kops.reset_launch_counts()
+    pf = SketchedKRR(cfg)
+    for lo in range(0, N_PARITY, PARITY_CHUNK):
+        hi = min(lo + PARITY_CHUNK, N_PARITY)
+        pf.partial_fit(_csr_rows(sub, lo, hi), y_sub[lo:hi])
+    y_pf = pf.finalize().predict(test)
+    torch.cuda.synchronize()
+    pf_counts = kops.launch_counts()
+    f_sub = torch.as_tensor(rc["f_test"][:N_PARITY_TEST], device="cuda")
+    mse_pf = float(torch.mean((y_pf - f_sub) ** 2))
+    log(f"[sparse] fit(SparseChunkSource) = fit(CsrMatrix) bit for bit; "
+        f"partial_fit x3 + finalize at n={N_PARITY}: test MSE vs f* "
+        f"{mse_pf:.4f} against var(f*) {float(torch.var(f_sub)):.4f}, "
+        f"launches {pf_counts}")
+    check(bool(torch.isfinite(y_pf).all()), "partial_fit: non-finite")
+    check(pf_counts["sparse_cross"] >= 4,
+          f"partial_fit launched sparse_cross {pf_counts['sparse_cross']} "
+          "times (< 4)")
+    check(mse_pf < float(torch.var(f_sub)), f"partial_fit test MSE {mse_pf}")
+    res["sparse"]["partial_fit_mse"] = mse_pf
+
+
+def _profile(run) -> dict:
+    """Device time by kernel over one more ``run()`` (a fit and its
+    predictions), under ``torch.profiler`` (CUPTI), and the device's busy
+    share of the wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model.fit(Xtr, ytr)
-        model.predict_batched(Xte, batch_size=256)
+        run()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -373,7 +710,8 @@ def _bound_ms(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_summary(res: dict, keep: dict) -> None:
+def _summary_dense(res: dict, keep: dict) -> list[dict]:
+    """K1 and K2 rows, at the main path's shapes."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rbf_block import kernel_block
@@ -422,7 +760,8 @@ def phase_summary(res: dict, keep: dict) -> None:
     check(rel2 <= K2_RTOL["float32"], f"K2 at main shape: {rel2:.3e}")
 
     src = "src/repro_torch/kernels/csrc"
-    res["kernels"] = [
+    res["k1_linear_vs_matmul_ms"] = dict(kernel=lin_ms, matmul=mm_ms)
+    return [
         dict(name="kernel_block", route="cuda",
              source=f"{src}/kernel_block.cu",
              replaces="src/repro/kernels/rbf_block.py:84",
@@ -435,7 +774,83 @@ def phase_summary(res: dict, keep: dict) -> None:
              ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
              library_ms=lib2),
     ]
-    res["k1_linear_vs_matmul_ms"] = dict(kernel=lin_ms, matmul=mm_ms)
+
+
+def _summary_sparse(res: dict, keep: dict) -> dict:
+    """K3's row: the build the sparse path runs (float32 data, float64
+    accumulation) at one full chunk of the cell against the fitted
+    landmarks (the score pass's and the solver's launches), and at the
+    whole test set (predict); the float32 build and the library call beside
+    it."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparse_block import sparse_cross
+    X, Z = _full_chunk(keep)
+    Z = keep.get("sparse_Z", Z).contiguous()
+    rows, p, d = X.shape[0], Z.shape[0], RCV1_DIM
+    nnz = int(X.indptr[-1])
+    acc = torch.float64       # SPARSE_PRECISION's accumulation
+    args = (X.data, X.indices, X.indptr, Z)
+    rbf = dict(kind="rbf", bandwidth=RCV1_BANDWIDTH)
+    got = sparse_cross(*args, acc_dtype=acc, **rbf)
+    want = ref.sparse_kernel_block_ref(X.data.to(acc), X.indices, X.indptr,
+                                       Z.to(acc), **rbf).float()
+    err3 = float((got - want).abs().max())
+    del got, want
+    ms3 = cuda_ms(lambda: sparse_cross(*args, acc_dtype=acc, **rbf), reps=10)
+    plain3 = cuda_ms(lambda: ref.sparse_kernel_block_ref(
+        X.data.to(acc), X.indices, X.indptr, Z.to(acc), **rbf).float(),
+        reps=3)
+    ms3_f32 = cuda_ms(lambda: sparse_cross(*args, **rbf), reps=10)
+    lin3 = cuda_ms(lambda: sparse_cross(*args, kind="linear"), reps=10)
+    A = torch.sparse_csr_tensor(X.indptr, X.indices[:nnz], X.data[:nnz],
+                                size=(rows, d), check_invariants=False)
+    Zt = Z.T.contiguous()
+    lib3 = cuda_ms(lambda: torch.sparse.mm(A, Zt), reps=10)
+    lib_err = float((torch.sparse.mm(A, Zt)
+                     - sparse_cross(*args, kind="linear")).abs().max())
+    T = _rcv1(keep)["test"].cast(torch.float32, "cuda")
+    test_ms = cuda_ms(lambda: sparse_cross(T.data, T.indices, T.indptr, Z,
+                                           acc_dtype=acc, **rbf), reps=10)
+    b3, by3 = _bound_ms(2 * nnz * p + 5 * rows * p,
+                        8 * nnz + 4 * (rows + 1) + 4 * d * p + 4 * rows * p,
+                        "float64")
+    log(f"[summary] K3 rbf full chunk (rows,p,d)=({rows},{p},{d}), {nnz} "
+        f"values, f32 data / f64 accumulation: kernel {ms3:.3f} ms, plain "
+        f"{plain3:.3f} ms, bound {b3:.3f} ms ({by3}), max|Δ| {err3:.3e}")
+    log(f"[summary] K3 rbf same chunk, f32 build: kernel {ms3_f32:.3f} ms, "
+        f"same bound")
+    log(f"[summary] K3 linear same chunk, f32: kernel {lin3:.3f} ms, "
+        f"torch.sparse.mm (cuSPARSE SpMM, f32) {lib3:.3f} ms, max|Δ| "
+        f"between them {lib_err:.3e}")
+    log(f"[summary] K3 rbf whole test set ({T.shape[0]} rows, "
+        f"{int(T.indptr[-1])} values), f32 data / f64 accumulation: "
+        f"{test_ms:.3f} ms")
+    check(err3 <= K3_TOL["float32"], f"K3 at full chunk: {err3:.3e}")
+    res["k3_timing"] = dict(full_chunk_ms=ms3, full_chunk_f32_ms=ms3_f32,
+                            linear_f32_ms=lin3,
+                            sparse_mm_ms=lib3, test_set_ms=test_ms,
+                            nnz=nnz, rows=rows)
+    return dict(name="sparse_cross", route="cuda",
+                source="src/repro_torch/kernels/csrc/sparse_cross.cu",
+                replaces="src/repro/kernels/sparse_block.py:149",
+                launches=res.get("sparse", {}).get("launches", {}).get(
+                    "sparse_cross", 0),
+                max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=b3,
+                bound_by=by3, library_ms=lib3,
+                # library_ms times the linear kind in float32, which K3
+                # computes in library_kernel_ms
+                library_fn="linear, float32", library_kernel_ms=lin3)
+
+
+def phase_summary(res: dict, keep: dict) -> None:
+    """The kernel rows of the paths this run drove."""
+    rows = []
+    if "Xtr" in keep:
+        rows += _summary_dense(res, keep)
+    if "rcv1" in keep:
+        rows.append(_summary_sparse(res, keep))
+    res["kernels"] = rows
 
 
 # -------------------------------------------------------------------- main
@@ -480,10 +895,14 @@ def main() -> int:
             phase_k1(res)
         elif name == "k2":
             phase_k2(res)
+        elif name == "k3":
+            phase_k3(res, keep)
         elif name == "main":
             phase_main(res, keep)
         elif name == "parity":
             phase_parity(res, keep)
+        elif name == "sparse":
+            phase_sparse(res, keep)
         elif name == "summary":
             phase_summary(res, keep)
         log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")
@@ -494,7 +913,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(res, indent=1))
     print(res["card"], flush=True)
-    if "kernels" in res:
+    if res.get("kernels"):
         print(json.dumps({"kernels": res["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

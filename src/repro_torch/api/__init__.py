@@ -11,13 +11,22 @@ Samplers: uniform, diagonal, rls_exact, rls_fast (the default: Theorem-4
 fast scores, then the Theorem-3 leverage draw). Solvers: exact, nystrom
 (the default), nystrom_regularized. Backends: hopper (the CUDA kernels),
 torch (plain PyTorch), auto (hopper on CUDA, torch on the CPU).
+
+Out of core: ``fit(source)`` with a chunk source, ``fit(X_csr, y)`` with
+CSR rows, ``chunk_rows=`` on the config, ``partial_fit``/``finalize``.
 """
 from ..core.kernels import (BernoulliKernel, LinearKernel, PolynomialKernel,
                             RBFKernel)
 from ..core.nystrom import ColumnSample
 from ..core.precision import Precision
+from ..data.chunks import (ArrayChunkSource, ChunkSource,
+                           GeneratorChunkSource, MemmapChunkSource,
+                           as_chunk_source, gather_rows)
+from ..data.sparse import CsrMatrix, SparseChunkSource, is_sparse_matrix
 from .config import SketchConfig
 from .estimator import (NotFittedError, ServingState, SketchedKRR,
                         serving_state_from_reference)
+from .out_of_core import (CHUNKABLE_SAMPLERS, SPARSE_CHUNK_SOLVERS,
+                          fit_from_source)
 from .samplers import SAMPLERS, SamplerOutput
 from .solvers import SOLVERS, NystromState

@@ -58,6 +58,13 @@ class SketchConfig:
       jitter:    relative jitter for the p×p Cholesky factorizations.
       device:    "cuda" (the default; raises when no GPU is present) or
                  "cpu".
+      chunk_rows: out-of-core chunk size. When set, ``fit(X, y)`` streams
+                 the rows through the chunked driver in ``chunk_rows``-row
+                 blocks (``repro_torch.api.out_of_core``) and the fit holds
+                 O(chunk_rows·p) on the device; an in-memory fit at
+                 ``chunk_rows=r`` is bit-identical to ``fit(source)`` with
+                 any source at the same r. CSR input always takes the
+                 driver, as one whole-matrix chunk when this is unset.
     """
 
     kernel: Kernel
@@ -73,6 +80,7 @@ class SketchConfig:
     backend: str = "auto"
     jitter: float = 1e-10
     device: str = "cuda"
+    chunk_rows: int | None = None
 
     def __post_init__(self) -> None:
         if self.p <= 0:
@@ -83,6 +91,9 @@ class SketchConfig:
             raise ValueError(f"eps must be positive, got {self.eps}")
         if self.p_scores is not None and self.p_scores <= 0:
             raise ValueError(f"p_scores must be positive, got {self.p_scores}")
+        if self.chunk_rows is not None and self.chunk_rows <= 0:
+            raise ValueError(
+                f"chunk_rows must be positive, got {self.chunk_rows}")
         refuse_unported("sampler", self.sampler)
         refuse_unported("solver", self.solver)
         refuse_unported("backend", self.backend)

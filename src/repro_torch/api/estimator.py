@@ -13,6 +13,15 @@ evaluate goes through the ``KernelOps`` backend selected by
 ``config.backend`` (``auto``: the Hopper kernels on CUDA, the plain
 PyTorch path on the CPU).
 
+Fits also stream (``repro_torch.api.out_of_core``): ``fit(source)`` with a
+``repro_torch.data`` chunk source (array, generator factory, memory-mapped
+``.npy``, CSR), ``fit(X_csr, y)`` for a ``CsrMatrix`` or scipy.sparse
+matrix, and ``chunk_rows`` on the config for in-memory arrays hold
+O(chunk_rows·p) on the device; ``partial_fit(X, y)``/``finalize()``
+accumulate the same statistics incrementally, freezing the landmarks after
+the first chunk. Such models predict like in-memory ones; ``risk`` and
+``predict_train`` need the in-memory factor and say so.
+
 The fitted model of the landmark solvers is the O(p) ``ServingState`` —
 β, the landmark rows Z and the sketch column weights — which
 ``export_serving_state``/``import_serving_state`` move between estimators,
@@ -20,6 +29,7 @@ and ``serving_state_from_reference`` builds from the JAX package's export.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -29,8 +39,12 @@ from torch import Tensor
 from ..core.backends import KernelOps, ops_for_config
 from ..core.krr import RiskReport
 from ..core.nystrom import ColumnSample
+from ..data.chunks import (ArrayChunkSource, ChunkSource,
+                           as_chunk_source, to_host)
+from ..data.sparse import CsrMatrix, SparseChunkSource, is_sparse_matrix
 from ..device import resolve_device
 from .config import SketchConfig
+from .out_of_core import fit_from_source, require_sparse_chunk_solver
 from .samplers import SAMPLERS, Sampler, streams
 from .solvers import SOLVERS, NystromState, Solver
 
@@ -86,43 +100,146 @@ class SketchedKRR:
         self._scores: Tensor | None = None
         self._X_train: Tensor | None = None
         self._injected: dict = {}
+        self._accum: Any = None       # live ChunkAccumulator (partial_fit)
+        self._n_seen = 0
 
     # ------------------------------------------------------------- fitting
 
-    def _cast(self, arr) -> Tensor:
+    def _cast(self, arr):
         """``arr`` on the config's device, in its data dtype (None keeps
-        the input dtype)."""
-        return torch.as_tensor(arr, dtype=self.config.precision.data(),
-                               device=self.device)
+        the input dtype); a ``CsrMatrix`` or scipy.sparse matrix becomes a
+        validated ``CsrMatrix`` of tensors there."""
+        dt = self.config.precision.data()
+        if is_sparse_matrix(arr):
+            if not isinstance(arr, CsrMatrix):
+                arr = CsrMatrix.from_scipy(arr)
+            return arr.validate().cast(dt, self.device)
+        return torch.as_tensor(arr, dtype=dt, device=self.device)
 
-    def fit(self, X, y, *, sample: ColumnSample | None = None,
+    def _draws(self, sample, score_landmarks) -> dict:
+        """Injected draws as tensors on this estimator's device."""
+        return {
+            "landmarks": None if score_landmarks is None
+            else torch.as_tensor(score_landmarks, device=self.device),
+            "sample": None if sample is None else ColumnSample(
+                *(torch.as_tensor(a, device=self.device) for a in sample))}
+
+    def fit(self, X, y=None, *, sample: ColumnSample | None = None,
             score_landmarks: Tensor | None = None) -> "SketchedKRR":
-        """Fit from in-memory rows.
+        """Fit from in-memory rows — or out of core.
+
+        Input shapes:
+          * ``fit(X, y)`` with arrays: the in-memory fit, unless
+            ``config.chunk_rows`` is set, which streams the same rows
+            through the chunked driver in ``chunk_rows`` blocks;
+          * ``fit(source)`` with a ``repro_torch.data`` ``ChunkSource``
+            (targets ride inside it);
+          * ``fit(X_csr, y)`` with a ``CsrMatrix`` or scipy.sparse matrix:
+            the chunked driver over a ``SparseChunkSource`` (one
+            whole-matrix chunk when ``chunk_rows`` is unset), X never
+            densified;
+          * ``fit(path, y_path)`` with ``.npy`` paths (a
+            ``MemmapChunkSource``) or ``fit(factory)`` with a zero-arg
+            callable yielding ``(X_block, y_block)`` pairs (a
+            ``GeneratorChunkSource``), at ``chunk_rows`` (default 4096).
 
         ``sample`` (a ``ColumnSample``) and ``score_landmarks`` (the
         Theorem-4 pass's landmark indices) replace the fit's own random
         draws with given ones — the seam through which the parity tests
         inject the reference's draws, which PyTorch cannot reproduce.
+        Chunked fits are bit-identical across source kinds at equal
+        ``chunk_rows``.
         """
+        cfg = self.config
+        draws = dict(sample=sample, score_landmarks=score_landmarks)
+        if isinstance(X, ChunkSource):
+            if y is not None:
+                raise ValueError("fit(source): targets ride inside the "
+                                 "chunk source, drop the y argument")
+            return self._fit_source(X, **draws)
+        if isinstance(X, (str, os.PathLike)) or callable(X):
+            return self._fit_source(
+                as_chunk_source(X, y, cfg.chunk_rows or 4096), **draws)
+        if y is None:
+            raise TypeError("fit(X, y) needs targets; only chunk sources "
+                            "carry their own y")
+        if is_sparse_matrix(X):
+            if not isinstance(X, CsrMatrix):
+                X = CsrMatrix.from_scipy(X)
+            return self._fit_source(SparseChunkSource(
+                X, to_host(y), cfg.chunk_rows or max(X.shape[0], 1)), **draws)
+        if cfg.chunk_rows is not None:
+            return self._fit_source(ArrayChunkSource(
+                to_host(X), to_host(y), cfg.chunk_rows), **draws)
         self._X_train = self._cast(X)
         y = self._cast(y)
         self._sample = self._scores = None
-        self._injected = {
-            "landmarks": None if score_landmarks is None
-            else torch.as_tensor(score_landmarks, device=self.device),
-            "sample": None if sample is None else ColumnSample(
-                *(torch.as_tensor(a, device=self.device) for a in sample))}
+        self._accum = None
+        self._injected = self._draws(sample, score_landmarks)
         # solvers that ignore the sample (exact) skip the sampling pass;
         # scores()/sample() run it lazily from the same seed
         drawn = self._run_sampler() if self._solver.needs_sample else None
         self._state = self._solver.fit(self.config, self._X_train, y, drawn)
         return self
 
+    def _fit_source(self, source: ChunkSource, *, sample=None,
+                    score_landmarks=None) -> "SketchedKRR":
+        """Out-of-core fit through ``repro_torch.api.out_of_core``."""
+        self._sample = self._scores = self._X_train = None
+        self._accum = None
+        draws = self._draws(sample, score_landmarks)
+        res = fit_from_source(self.config, self._solver, source,
+                              sample=draws["sample"],
+                              score_landmarks=draws["landmarks"])
+        self._sample, self._scores = res.sample, res.scores
+        self._n_seen = res.n_rows
+        self._state = res.state
+        return self
+
+    def partial_fit(self, X, y) -> "SketchedKRR":
+        """Fold one row chunk (dense or CSR) into the fit's statistics.
+
+        The first chunk runs the configured sampler on that chunk and
+        freezes the landmarks and sketch weights (valid when chunks are
+        exchangeable draws from one distribution); every chunk, the first
+        included, then folds into the solver's accumulator — O(p²) state
+        for the Nyström solvers, buffered rows for ``exact``. ``finalize()``
+        solves; more ``partial_fit`` + ``finalize`` rounds refine the same
+        model from the enlarged statistics.
+        """
+        cfg = self.config
+        X, y = self._cast(X), self._cast(y)
+        require_sparse_chunk_solver(cfg, isinstance(X, CsrMatrix))
+        if self._accum is None:
+            self._state = None
+            self._sample = self._scores = self._X_train = None
+            self._n_seen = 0
+            landmarks = None
+            if self._solver.needs_sample:
+                out = self._sampler(tuple(streams(cfg.seed, 2)), cfg.kernel,
+                                    X, cfg)
+                self._sample, self._scores = out.sample, out.scores
+                landmarks = X[out.sample.idx]
+            self._accum = self._solver.begin_chunked(cfg, landmarks,
+                                                     self._sample)
+        self._accum.add(X, y)
+        self._n_seen += X.shape[0]
+        return self
+
+    def finalize(self) -> "SketchedKRR":
+        """Solve from the statistics ``partial_fit`` accumulated (O(p³) for
+        the Nyström solvers); the accumulator stays live for more chunks."""
+        if self._accum is None:
+            raise NotFittedError("call partial_fit(X, y) before finalize()")
+        self._state = self._accum.finalize(self._n_seen)
+        return self
+
     def _run_sampler(self) -> ColumnSample:
         if self._X_train is None:
             raise NotFittedError(
                 "sampler diagnostics need the in-memory training set, which "
-                "a model imported from a serving state does not have")
+                "an out-of-core fit whose solver drew no sample, or a model "
+                "imported from a serving state, does not have")
         out = self._sampler(tuple(streams(self.config.seed, 2)),
                             self.config.kernel, self._X_train, self.config,
                             **self._injected)
@@ -131,6 +248,10 @@ class SketchedKRR:
 
     def _require_fit(self) -> None:
         if self._state is None:
+            if self._accum is not None:
+                raise NotFittedError(
+                    "partial_fit has accumulated chunks but the model is "
+                    "not solved yet — call finalize() first")
             raise NotFittedError("call fit(X, y) before this method")
 
     # ---------------------------------------------------------- prediction
@@ -157,6 +278,11 @@ class SketchedKRR:
         With ``config.precision.serve_dtype`` set, each batch is cast to
         that dtype and its blocks are evaluated there."""
         self._require_fit()
+        if is_sparse_matrix(X_test):
+            raise TypeError(
+                "predict_batched slices/pads dense test batches, which "
+                "CsrMatrix does not support; call predict(X_test) — the "
+                "sparse cross block is internally nnz-tiled already")
         X_test = self._cast(X_test)
         n = X_test.shape[0]
         if n == 0:
@@ -210,6 +336,7 @@ class SketchedKRR:
             landmarks=serving.landmarks.to(self.device),
             col_weights=None if weights is None else weights.to(self.device))
         self._sample = self._scores = self._X_train = None
+        self._accum = None
         return self
 
     # ---------------------------------------------------------- diagnostics

@@ -1,0 +1,216 @@
+"""Out-of-core fit driver: the paper pipeline over a ``ChunkSource``.
+
+The Theorem-4 score pass and the Theorem-3 sketch solve are one-touch row
+streams with small cross-row state: the diagonal is (n,), CᵀC and Csᵀy are
+p×p / p-sized accumulators, and the p×p algebra between passes
+(``core.backends.score_pass_core``, the ``*_beta_from_stats`` finalizers)
+never sees a row. This module strings them into a fit that reads its data
+one chunk at a time and never holds X, C or B whole:
+
+  pass 1  kernel diagonal   → the Theorem-4 seed distribution, row count n
+  pass 2  landmark gather   → Z₀ = X[idx] for the drawn score landmarks
+  pass 3  chunked CᵀC       → ``score_pass_chunk_gram`` per chunk
+  pass 4  chunked scores    → ``score_pass_chunk_scores`` per chunk →
+                              Theorem-3 column draw, gather of the final Z
+  pass 5  solver statistics → the solver's ``ChunkAccumulator``
+
+Sources stay on the host; each chunk moves to the configured device in the
+data dtype, and its kernel blocks come from the configured ``KernelOps``
+executor — K1 for dense chunks, K3 for CSR chunks under ``hopper``. Device
+state is O(chunk_rows·p) per chunk plus O(p²) across chunks; the (n,)
+diagonal and scores are the only n-sized arrays. Draws come from the same
+CPU ``torch.Generator`` streams as the in-memory sampler
+(``samplers.streams(seed, 2)``: score-pass landmarks, then the column
+draw), so a seed draws the same score landmarks in memory and chunked.
+
+``SketchedKRR.fit`` routes here for any chunk source, for CSR input, and
+for in-memory arrays when ``SketchConfig.chunk_rows`` is set; results are
+bit-identical across source kinds at equal ``chunk_rows``.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from ..core.backends import (KernelOps, landmark_cholesky, ops_for_config,
+                             score_pass_core)
+from ..core.leverage import draw_landmarks
+from ..core.nystrom import ColumnSample, draw_columns
+from ..data.chunks import ChunkSource, gather_rows
+from ..data.sparse import CsrMatrix, SparseChunkSource
+from .config import SketchConfig
+from .samplers import streams
+
+# samplers the driver evaluates one chunk at a time. rls_exact needs the
+# full n×n Gram (an in-memory diagnostic); bless, the reference's fourth,
+# is not ported (ROADMAP item 7)
+CHUNKABLE_SAMPLERS = ("uniform", "diagonal", "rls_fast")
+
+# solvers whose accumulators touch X only through kernel blocks (O(p²)
+# statistics) — the ones CSR chunks can feed; ``exact`` buffers raw rows.
+# The reference's third, falkon_pcg, is ROADMAP item 6
+SPARSE_CHUNK_SOLVERS = ("nystrom", "nystrom_regularized")
+
+
+def require_sparse_chunk_solver(config: SketchConfig, sparse: bool) -> None:
+    """Refuse CSR chunks to a solver that would have to densify them."""
+    if sparse and config.solver not in SPARSE_CHUNK_SOLVERS:
+        raise ValueError(
+            f"solver {config.solver!r} buffers raw rows host-side and "
+            f"cannot consume CSR chunks without densifying them; sparse "
+            f"chunks support: {', '.join(SPARSE_CHUNK_SOLVERS)}")
+
+
+class ChunkedFitResult(NamedTuple):
+    """What a chunked fit hands back to the estimator."""
+
+    state: Any                    # fitted solver state (predict-ready)
+    sample: ColumnSample | None   # Theorem-3 column draw (None: exact)
+    scores: Tensor | None         # (n,) sampler scores behind the draw
+    n_rows: int                   # total valid rows streamed
+
+
+def _cast_chunk(config: SketchConfig, arr):
+    """A host block (numpy array or ``CsrMatrix``) on the config's device in
+    its data dtype (None keeps the block's dtype); ``None`` stays None."""
+    if arr is None:
+        return None
+    dt, dev = config.precision.data(), torch.device(config.device)
+    if isinstance(arr, CsrMatrix):
+        return arr.cast(dt, dev)
+    return torch.as_tensor(np.asarray(arr), dtype=dt, device=dev)
+
+
+def diag_pass(config: SketchConfig, source: ChunkSource) -> tuple[Tensor, int]:
+    """(kernel diagonal, row count) in one streamed pass — the Theorem-4
+    seed distribution p_i = K_ii/Tr(K), (n,) like the sampler's output."""
+    parts: list[Tensor] = []
+    n = 0
+    for chunk in source.chunks():
+        d = config.kernel.diag(_cast_chunk(config, chunk.X))
+        parts.append(d[:chunk.n_valid])
+        n += chunk.n_valid
+    if n == 0:
+        raise ValueError("chunk source yielded no rows")
+    return torch.cat(parts), n
+
+
+def chunked_score_pass(config: SketchConfig, source: ChunkSource, Z: Tensor,
+                       n: int, lam: float, *, ops: KernelOps | None = None
+                       ) -> tuple[Tensor, Tensor]:
+    """Theorem-4 scores over a chunk source, in two streamed passes: the
+    chunked CᵀC (``score_pass_chunk_gram``, p×p cross-chunk state in the
+    policy's accumulation dtype), the shared p×p factorization
+    (``score_pass_core``), then the per-chunk score reads
+    (``score_pass_chunk_scores``). Returns (scores, ‖B_i‖²) for the n rows.
+
+    The landmark overlap is factored by ``landmark_cholesky``: the
+    reference's factorization, with the port's R1 rescue when it fails."""
+    ops = ops_for_config(config) if ops is None else ops
+    W = ops.cross(Z, Z)
+    ad, wd = ops.score_pass_dtypes(W.dtype)
+    Lc = landmark_cholesky(W, config.jitter, solve_dtype=wd)
+    p = Z.shape[0]
+    CtC = torch.zeros((p, p), dtype=ad, device=Z.device)
+    for chunk in source.chunks():
+        xb = _cast_chunk(config, chunk.X)
+        mb = (torch.arange(xb.shape[0], device=Z.device)
+              < chunk.n_valid).to(W.dtype)
+        CtC = CtC + ops.score_pass_chunk_gram(xb, mb, Z, ad)
+    La = score_pass_core(Lc, CtC, lam, n)
+    s_parts: list[Tensor] = []
+    r_parts: list[Tensor] = []
+    for chunk in source.chunks():
+        s, r = ops.score_pass_chunk_scores(_cast_chunk(config, chunk.X), Z,
+                                           Lc, La)
+        s_parts.append(s[:chunk.n_valid])
+        r_parts.append(r[:chunk.n_valid])
+    scores = torch.cat(s_parts)
+    if scores.shape[0] != n:
+        raise ValueError(
+            f"chunk source is not re-iterable: the score pass saw "
+            f"{scores.shape[0]} rows, expected {n}; each chunks() call "
+            "must replay the same rows")
+    return scores, torch.cat(r_parts)
+
+
+def sample_from_source(config: SketchConfig, source: ChunkSource,
+                       gens: tuple[torch.Generator, torch.Generator], *,
+                       landmarks: Tensor | None = None,
+                       sample: ColumnSample | None = None
+                       ) -> tuple[ColumnSample, Tensor, int]:
+    """The configured sampler evaluated chunk by chunk, with the in-memory
+    sampler's draws: the score landmarks from ``gens[0]`` (``min(p_scores,
+    n)`` of them, with replacement, from K_ii/Tr(K)), the columns from
+    ``gens[1]``. ``landmarks`` and ``sample`` replace those draws with
+    given ones, as the in-memory ``fit`` allows. Returns (column sample,
+    unnormalized scores, row count)."""
+    name = config.sampler
+    if name not in CHUNKABLE_SAMPLERS:
+        raise ValueError(
+            f"sampler {name!r} cannot run out-of-core (it needs the full "
+            f"training set in memory); chunkable samplers: "
+            f"{CHUNKABLE_SAMPLERS}")
+    diag, n = diag_pass(config, source)
+    if name == "uniform":
+        scores = torch.ones_like(diag)
+    elif name == "diagonal":
+        scores = diag
+    else:  # rls_fast: Theorem-4 landmarks → chunked score pass
+        idx = landmarks
+        if idx is None:
+            idx = draw_landmarks(gens[0], diag / torch.sum(diag),
+                                 min(config.score_pass_p, n), True)
+        Z0 = _cast_chunk(config, gather_rows(source, idx.cpu().numpy()))
+        scores, _ = chunked_score_pass(config, source, Z0, n,
+                                       config.lam * config.eps)
+    if sample is None:
+        sample = draw_columns(gens[1], scores / torch.sum(scores), config.p)
+    return sample, scores, n
+
+
+def fit_from_source(config: SketchConfig, solver, source: ChunkSource, *,
+                    sample: ColumnSample | None = None,
+                    score_landmarks: Tensor | None = None
+                    ) -> ChunkedFitResult:
+    """One out-of-core fit: sample → gather landmarks → accumulate →
+    finalize. ``solver`` is the resolved registry entry (it must expose
+    ``begin_chunked``); ``sample``/``score_landmarks`` inject draws."""
+    begin = getattr(solver, "begin_chunked", None)
+    if begin is None:
+        raise ValueError(
+            f"solver {config.solver!r} does not support out-of-core "
+            "fitting; use one of: exact, nystrom, nystrom_regularized")
+    if not source.has_targets:
+        raise ValueError("fitting needs a source with targets: give the "
+                         "source a y array / path / block component")
+    require_sparse_chunk_solver(config, isinstance(source, SparseChunkSource))
+    scores = landmarks = n_expected = None
+    if solver.needs_sample:
+        sample, scores, n_expected = sample_from_source(
+            config, source, tuple(streams(config.seed, 2)),
+            landmarks=score_landmarks, sample=sample)
+        landmarks = _cast_chunk(config, gather_rows(
+            source, sample.idx.cpu().numpy()))
+    else:
+        sample = None
+    acc = begin(config, landmarks, sample)
+    n_seen = 0
+    for chunk in source.chunks():
+        acc.add(_cast_chunk(config, chunk.X), _cast_chunk(config, chunk.y),
+                chunk.n_valid)
+        n_seen += chunk.n_valid
+    if n_seen == 0:
+        raise ValueError("chunk source yielded no rows")
+    if n_expected is not None and n_seen != n_expected:
+        # a one-shot iterator wrapped as a factory, or a cursor that does
+        # not replay, would corrupt a multi-pass fit silently
+        raise ValueError(
+            f"chunk source is not re-iterable: the sampling passes saw "
+            f"{n_expected} rows but the solver pass saw {n_seen}; each "
+            "chunks() call must replay the same rows (wrap the construction "
+            "of a generator, not the iterator)")
+    return ChunkedFitResult(acc.finalize(n_seen), sample, scores, n_seen)

@@ -30,8 +30,16 @@ Registered backends:
 
 Every executor carries a ``Precision`` policy: blocks are materialized in
 the data dtype, reductions run in ``accum_dtype``, the p×p factorizations
-in ``solve_dtype``. The out-of-core ``score_pass_*`` seam of the reference
-is not ported yet (ROADMAP item 5).
+in ``solve_dtype``.
+
+A ``CsrMatrix`` row block is a valid X wherever Z is dense: ``torch`` takes
+the plain sparse contraction through ``kernel.gram``, ``hopper`` launches
+K3 ``sparse_cross`` for rbf/linear/poly.
+
+The chunked Theorem-4 seam (``score_pass_dtypes``,
+``score_pass_chunk_gram``, ``score_pass_chunk_scores`` and the p×p
+``score_pass_core`` between its two passes) is what the out-of-core driver
+(``repro_torch.api.out_of_core``) runs per chunk.
 """
 from __future__ import annotations
 
@@ -40,9 +48,11 @@ import dataclasses
 import torch
 from torch import Tensor
 
+from ..data.sparse import CsrMatrix
 from ..registry import Registry
 from .kernels import Kernel, LinearKernel, PolynomialKernel, RBFKernel
-from .precision import Precision, floored_jitter
+from .precision import (Precision, floored_jitter,
+                        storage_floored_jitter)
 
 
 # ------------------------------------------------------- shared p×p algebra
@@ -65,6 +75,32 @@ def jittered_cholesky_ex(W: Tensor, jitter: float) -> tuple[Tensor, Tensor]:
     (``precision.dtype_jitter_floor``) — the reference's one jitter
     convention for every landmark-overlap factorization."""
     return torch.linalg.cholesky_ex(_jittered(W, jitter))
+
+
+def landmark_cholesky(W: Tensor, jitter: float, *,
+                      solve_dtype=None) -> Tensor:
+    """L with L Lᵀ the jittered landmark overlap W, factored in
+    ``solve_dtype`` (None: W's dtype) — the factor of the Theorem-4 score
+    pass, in memory and chunked.
+
+    The first factorization is the reference's (jitter floored at a
+    sub-f32 storage dtype only). Only when it fails is W factored again
+    with the jitter floored at W's storage dtype: a W built from float32
+    columns carries float32 rounding, and with a duplicated landmark (draws
+    are with replacement) its smallest eigenvalue is negative at that scale
+    (−3.6e-8 at p = 64), which the float64 floor of ~2e-10 cannot absorb
+    (ROADMAP fault R1 of the reference). Healthy cells never take the
+    second factorization, so they stay identical to the reference."""
+    Ws = W if solve_dtype is None else W.to(solve_dtype)
+    jitter = storage_floored_jitter(jitter, W.dtype)
+    Lchol, info = jittered_cholesky_ex(Ws, jitter)
+    if int(info):
+        Lchol, info = jittered_cholesky_ex(Ws, floored_jitter(jitter, W.dtype))
+        if int(info):
+            raise torch.linalg.LinAlgError(
+                "landmark overlap W is not positive definite even with the "
+                f"jitter floored at its storage dtype {W.dtype}")
+    return Lchol
 
 
 def jittered_cholesky(W: Tensor, jitter: float) -> Tensor:
@@ -94,6 +130,39 @@ def reference_leverage_scores(B: Tensor, lam: float, n: int) -> Tensor:
     return scores_against_gram(B, B.T @ B, lam, n)
 
 
+def score_pass_core(Lc: Tensor, CtC: Tensor, lam: float, n: int) -> Tensor:
+    """The p×p algebra between the two chunked Theorem-4 passes.
+
+    Given the jittered landmark Cholesky L_c (W ≈ L_c L_cᵀ) and the
+    accumulated CᵀC, returns L_a with L_a L_aᵀ = A = L_c⁻¹ (CᵀC) L_c⁻ᵀ + nλI,
+    the matrix every per-chunk score evaluation solves against: O(p²)
+    state, independent of n.
+
+    A is never formed: L_a = L_c⁻¹ chol(M) for the congruent
+    M = CᵀC + nλ·L_c L_cᵀ, which does not amplify CᵀC's storage rounding
+    by 1/jitter in W's near-null directions as factoring A would. When —
+    and only when — that clean factorization fails (CᵀC's accumulation
+    noise exceeds nλ·λ_min(W)), M is factored again with a ridge at that
+    noise scale, eps(CᵀC's dtype)·(tr(CᵀC) + 1). The reference computes
+    both factors and picks the rescue when the clean one holds a NaN; here
+    the second factorization runs only when ``cholesky_ex`` reports the
+    failure, with the same result."""
+    p = Lc.shape[0]
+    C2 = CtC.to(Lc.dtype)
+    sym = 0.5 * (C2 + C2.T)
+    M = sym + (n * lam) * (Lc @ Lc.T)
+    Lm, info = torch.linalg.cholesky_ex(M)
+    if int(info):
+        ridge = torch.finfo(CtC.dtype).eps * (torch.trace(sym) + 1.0)
+        Lm = torch.linalg.cholesky(M + ridge * _eye(p, M))
+    return torch.linalg.solve_triangular(Lc, Lm, upper=False)
+
+
+def _to(a, dtype: torch.dtype):
+    """A tensor or ``CsrMatrix`` with its values in ``dtype``."""
+    return a.astype(dtype) if isinstance(a, CsrMatrix) else a.to(dtype)
+
+
 # ------------------------------------------------------------- the protocol
 
 @dataclasses.dataclass(frozen=True)
@@ -117,7 +186,7 @@ class KernelOps:
         dd = self.precision.data()
         if dd is None:
             return arrays
-        return tuple(a.to(dd) for a in arrays)
+        return tuple(_to(a, dd) for a in arrays)
 
     def _accum(self, dtype):
         """Accumulation dtype for reductions over ``dtype`` (or None)."""
@@ -134,7 +203,7 @@ class KernelOps:
         acc = self._accum(block)
         if acc is None:
             return self.kernel.gram(X, Z)
-        return self.kernel.gram(X.to(acc), Z.to(acc)).to(block)
+        return self.kernel.gram(_to(X, acc), Z.to(acc)).to(block)
 
     # ------------------------------------------------------- the protocol
 
@@ -180,6 +249,36 @@ class KernelOps:
         return scores_against_gram(B, G, lam, n,
                                    solve_dtype=self._solve(B.dtype))
 
+    # ---------------------------------------- chunked Theorem-4 seam
+    # The score pass splits into two passes over row chunks with only p×p
+    # state between them (``score_pass_core``); these are the per-chunk
+    # bodies the out-of-core driver runs, each holding O(chunk_rows·p).
+
+    def score_pass_dtypes(self, dtype) -> tuple[torch.dtype, torch.dtype]:
+        """(accum, solve) dtypes of the chunked pass for ``dtype`` blocks:
+        the policy's resolutions, with ``dtype`` where they leave it."""
+        acc, sd = self._accum(dtype), self._solve(dtype)
+        return (dtype if acc is None else acc, dtype if sd is None else sd)
+
+    def score_pass_chunk_gram(self, xb, mask: Tensor, Z: Tensor,
+                              accum_dtype) -> Tensor:
+        """One chunk's CᵀC, p×p in ``accum_dtype``. k(x, z) ≠ 0 for a
+        zero-padded row, so the mask multiplies the block before the
+        reduction: padded rows are exact zeros in every precision."""
+        Cb = (self.cross(xb, Z) * mask[:, None]).to(accum_dtype)
+        return Cb.T @ Cb
+
+    def score_pass_chunk_scores(self, xb, Z: Tensor, Lc: Tensor,
+                                La: Tensor) -> tuple[Tensor, Tensor]:
+        """One chunk's (scores, ‖B_i‖²): the chunk's C block again, read
+        through two triangular solves against the ``score_pass_core``
+        factors, in xb's dtype."""
+        Cb = self.cross(xb, Z)
+        Bt = torch.linalg.solve_triangular(Lc, Cb.T.to(Lc.dtype), upper=False)
+        V = torch.linalg.solve_triangular(La, Bt, upper=False)
+        return (torch.sum(V * V, dim=0).to(Cb.dtype),
+                torch.sum(Bt * Bt, dim=0).to(Cb.dtype))
+
 
 BACKENDS: Registry[type] = Registry("backend")
 
@@ -201,8 +300,8 @@ class TorchOps(KernelOps):
 @dataclasses.dataclass(frozen=True)
 class HopperOps(KernelOps):
     """Routes blocks to the hand-written Hopper kernels
-    (``repro_torch.kernels``): K1 for rbf/linear/poly blocks, K2 for the
-    eq.-(9) scores."""
+    (``repro_torch.kernels``): K1 for dense rbf/linear/poly blocks, K3 for
+    CSR ones, K2 for the eq.-(9) scores."""
 
     name = "hopper"
 
@@ -214,11 +313,24 @@ class HopperOps(KernelOps):
             block = torch.promote_types(block, dt)
         return self._accum(block)
 
-    def cross(self, X_test: Tensor, Z: Tensor) -> Tensor:
+    def cross(self, X_test, Z: Tensor) -> Tensor:
         from ..kernels import ops as kops
         X_test, Z = self._cast_data(X_test, Z)
         acc = self._tile_acc(X_test.dtype, Z.dtype)
         k = self.kernel
+        if isinstance(X_test, CsrMatrix):
+            # K3; kernels without a sparse body (bernoulli) go to _gram,
+            # whose dispatch raises the descriptive error
+            kind = {RBFKernel: "rbf", LinearKernel: "linear",
+                    PolynomialKernel: "poly"}.get(type(k))
+            if kind is None:
+                return self._gram(X_test, Z)
+            return kops.sparse_block(
+                X_test.data, X_test.indices, X_test.indptr, Z, kind=kind,
+                bandwidth=getattr(k, "bandwidth", 1.0),
+                degree=getattr(k, "degree", 2),
+                scale=getattr(k, "scale", 1.0),
+                offset=getattr(k, "offset", 1.0), acc_dtype=acc)
         if isinstance(k, RBFKernel):
             return kops.rbf_block(X_test, Z, bandwidth=k.bandwidth,
                                   acc_dtype=acc)

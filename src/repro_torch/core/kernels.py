@@ -13,7 +13,11 @@ Kernels implemented:
   * ``BernoulliKernel``       the paper's synthetic-experiment kernel on [0,1]:
         k(x,z) = B_{2b}(x - z - floor(x - z)) / (2b)!
 
-Sparse (CSR) inputs are not ported yet (ROADMAP item 8) and raise.
+A ``CsrMatrix`` left operand (a sparse row block against a dense (p, d)
+landmark block Z) takes the plain sparse contraction
+(``kernels.ref.sparse_kernel_block_ref``) for linear, rbf and poly; the
+``hopper`` backend replaces it with the K3 ``sparse_cross`` CUDA kernel.
+``BernoulliKernel`` has no sparse evaluation and raises.
 """
 from __future__ import annotations
 
@@ -25,6 +29,10 @@ from typing import Protocol
 import torch
 from torch import Tensor
 
+from ..data.sparse import CsrMatrix
+from ..kernels.ref import sparse_kernel_block_ref
+from ..kernels.sparse_block import sparse_row_sqnorms
+
 
 class Kernel(Protocol):
     def gram(self, X: Tensor, Z: Tensor) -> Tensor: ...
@@ -32,14 +40,28 @@ class Kernel(Protocol):
     def diag(self, X: Tensor) -> Tensor: ...
 
 
-def require_dense(*arrays) -> None:
-    """Raise for sparse operands: the CSR path is ROADMAP item 8."""
-    for a in arrays:
-        if hasattr(a, "indptr") or getattr(a, "layout",
-                                           torch.strided) != torch.strided:
-            raise NotImplementedError(
-                "sparse (CSR) kernel operands are not ported to repro_torch "
-                "yet (ROADMAP item 8: sparse inputs); pass a dense tensor")
+def _sparse_lhs(X, Z) -> CsrMatrix | None:
+    """The CSR left operand of a sparse×dense block, else None. Sparse
+    blocks are always k(X_csr, Z) with Z the dense (p, d) landmark block;
+    PyTorch's own sparse layouts are refused, pointing at ``CsrMatrix``."""
+    if any(getattr(a, "layout", torch.strided) != torch.strided
+           for a in (X, Z)):
+        raise NotImplementedError(
+            "PyTorch sparse tensors are not kernel operands; pass the rows "
+            "as a repro_torch.data.CsrMatrix (CsrMatrix.from_scipy / "
+            "from_dense) or as a dense tensor")
+    if isinstance(Z, CsrMatrix):
+        raise NotImplementedError(
+            "sparse right-hand kernel operands are not supported: blocks "
+            "are k(X, Z) with Z a dense (p, d) landmark block — densify "
+            "it (CsrMatrix.todense() / CsrMatrix[idx]) or keep landmarks "
+            "dense")
+    return X if isinstance(X, CsrMatrix) else None
+
+
+def _sparse_block(X: CsrMatrix, Z: Tensor, kind: str, **params) -> Tensor:
+    return sparse_kernel_block_ref(X.data, X.indices, X.indptr, Z, kind=kind,
+                                   **params)
 
 
 def _sqdist(X: Tensor, Z: Tensor) -> Tensor:
@@ -52,11 +74,14 @@ def _sqdist(X: Tensor, Z: Tensor) -> Tensor:
 @dataclasses.dataclass(frozen=True)
 class LinearKernel:
     def gram(self, X: Tensor, Z: Tensor) -> Tensor:
-        require_dense(X, Z)
+        xs = _sparse_lhs(X, Z)
+        if xs is not None:
+            return _sparse_block(xs, Z, "linear")
         return X @ Z.T
 
     def diag(self, X: Tensor) -> Tensor:
-        require_dense(X)
+        if isinstance(X, CsrMatrix):
+            return sparse_row_sqnorms(X.data, X.indptr)
         return torch.sum(X * X, dim=-1)
 
 
@@ -65,11 +90,12 @@ class RBFKernel:
     bandwidth: float = 1.0
 
     def gram(self, X: Tensor, Z: Tensor) -> Tensor:
-        require_dense(X, Z)
+        xs = _sparse_lhs(X, Z)
+        if xs is not None:
+            return _sparse_block(xs, Z, "rbf", bandwidth=self.bandwidth)
         return torch.exp(-_sqdist(X, Z) / (2.0 * self.bandwidth**2))
 
     def diag(self, X: Tensor) -> Tensor:
-        require_dense(X)
         return torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
 
 
@@ -80,11 +106,16 @@ class PolynomialKernel:
     offset: float = 1.0
 
     def gram(self, X: Tensor, Z: Tensor) -> Tensor:
-        require_dense(X, Z)
+        xs = _sparse_lhs(X, Z)
+        if xs is not None:
+            return _sparse_block(xs, Z, "poly", degree=self.degree,
+                                 scale=self.scale, offset=self.offset)
         return (X @ Z.T / self.scale + self.offset) ** self.degree
 
     def diag(self, X: Tensor) -> Tensor:
-        require_dense(X)
+        if isinstance(X, CsrMatrix):
+            sq = sparse_row_sqnorms(X.data, X.indptr)
+            return (sq / self.scale + self.offset) ** self.degree
         return (torch.sum(X * X, dim=-1) / self.scale
                 + self.offset) ** self.degree
 
@@ -100,6 +131,11 @@ def _bernoulli_poly_coeffs(m: int) -> tuple[float, ...]:
             s += math.comb(j + 1, k) * B[k]
         B.append(-s / (j + 1))
     return tuple(math.comb(m, k) * B[m - k] for k in range(m + 1))
+
+
+_NO_SPARSE_BERNOULLI = (
+    "BernoulliKernel is a scalar grid kernel with no sparse evaluation; use "
+    "linear/rbf/poly for CsrMatrix inputs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,11 +156,13 @@ class BernoulliKernel:
         return sign * acc / math.factorial(m)
 
     def gram(self, X: Tensor, Z: Tensor) -> Tensor:
-        require_dense(X, Z)
+        if isinstance(X, CsrMatrix) or isinstance(Z, CsrMatrix):
+            raise NotImplementedError(_NO_SPARSE_BERNOULLI)
         return self._k1d(X.reshape(-1)[:, None] - Z.reshape(-1)[None, :])
 
     def diag(self, X: Tensor) -> Tensor:
-        require_dense(X)
+        if isinstance(X, CsrMatrix):
+            raise NotImplementedError(_NO_SPARSE_BERNOULLI)
         return self._k1d(torch.zeros_like(X.reshape(-1)))
 
 

@@ -21,10 +21,9 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from .backends import KernelOps, jittered_cholesky_ex, ops_for
+from .backends import KernelOps, landmark_cholesky, ops_for
 from .kernels import Kernel
-from .precision import (Precision, floored_jitter,
-                        precision_independent_probs, storage_floored_jitter)
+from .precision import Precision, precision_independent_probs
 
 
 # ---------------------------------------------------------------- exact path
@@ -82,27 +81,12 @@ def _nystrom_factor(C: Tensor, W: Tensor, jitter: float, *,
                     solve_dtype=None) -> Tensor:
     """B such that B Bᵀ = C Wj^{-1} Cᵀ, via Cholesky of the jittered W.
 
-    Step 4 of the paper's algorithm: Cholesky on the p×p overlap W and a
-    triangular solve against C — O(p³ + np²). ``solve_dtype`` runs both at
-    that precision; B comes back in C's dtype.
-
-    The factorization is the reference's. Only when it fails is W factored
-    again with the jitter floored at the block's storage dtype: a W built
-    from float32 columns carries float32 rounding, and with a duplicated
-    landmark (draws are with replacement) its smallest eigenvalue is
-    negative at that scale (−3.6e-8 at p = 64), which the float64 floor of
-    ~2e-10 cannot absorb. Healthy cells never take the second factorization,
-    so they stay identical to the reference.
+    Step 4 of the paper's algorithm: Cholesky on the p×p overlap W
+    (``backends.landmark_cholesky``, with its R1 rescue) and a triangular
+    solve against C — O(p³ + np²). ``solve_dtype`` runs both at that
+    precision; B comes back in C's dtype.
     """
-    Ws = W if solve_dtype is None else W.to(solve_dtype)
-    jitter = storage_floored_jitter(jitter, W.dtype)
-    Lchol, info = jittered_cholesky_ex(Ws, jitter)
-    if int(info):
-        Lchol, info = jittered_cholesky_ex(Ws, floored_jitter(jitter, W.dtype))
-        if int(info):
-            raise torch.linalg.LinAlgError(
-                "landmark overlap W is not positive definite even with the "
-                f"jitter floored at its storage dtype {W.dtype}")
+    Lchol = landmark_cholesky(W, jitter, solve_dtype=solve_dtype)
     # B = C L^{-T}  =>  B Bᵀ = C (L Lᵀ)^{-1} Cᵀ
     B = torch.linalg.solve_triangular(Lchol.T, C.to(Lchol.dtype), upper=True,
                                       left=False)

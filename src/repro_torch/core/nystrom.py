@@ -88,3 +88,47 @@ def nystrom_regularized_factors(C: Tensor, idx: Tensor, weights: Tensor,
     Lchol = torch.linalg.cholesky(A)
     F = torch.linalg.solve_triangular(Lchol.T, Cs, upper=True, left=False)
     return F, Lchol
+
+
+# ------------------------------------------- out-of-core sufficient stats
+#
+# The fitted predictor of either Nyström solver is f̂(x) = k(x, Z)·β with
+# β ∈ R^p, and both sketches admit O(p²) sufficient statistics for it: the
+# landmark overlap W = k(Z, Z), the accumulated CᵀC (of the weighted
+# columns for L_γ) and Cᵀy. The chunked driver streams the two
+# accumulators; these finalizers turn them into β with O(p³) work.
+
+def nystrom_beta_from_stats(W: Tensor, CtC: Tensor, Cty: Tensor, n: int,
+                            lam: float, *, jitter: float = 1e-10) -> Tensor:
+    """β of the classic sketch L = C W† Cᵀ from O(p²) statistics: with
+    F = C G (G Gᵀ = W†), FᵀF = Gᵀ(CᵀC)G and Fᵀy = Gᵀ(Cᵀy), and
+    β = G (Fᵀα) — the ``NystromSolver`` β without C or F."""
+    from .krr import woodbury_dual_from_stats
+    G = _psd_factor(W, jitter)
+    G_F = G.T @ CtC @ G
+    b_F = G.T @ Cty
+    return G @ woodbury_dual_from_stats(G_F, b_F, n * lam)
+
+
+def nystrom_regularized_beta_from_stats(W: Tensor, weights: Tensor,
+                                        CtC: Tensor, Cty: Tensor, n: int,
+                                        gamma: float, lam: float) -> Tensor:
+    """β of the footnote-4 sketch L_γ from O(p²) statistics over the
+    weighted columns Cs = C·diag(w): with A = ½(Ws + Wsᵀ) + nγI = L Lᵀ and
+    F = Cs L^{-T}, FᵀF = L^{-1}(CsᵀCs)L^{-T}, Fᵀy = L^{-1}(Csᵀy) and
+    β = L^{-T}(Fᵀα) — the ``NystromRegularizedSolver`` algebra term for
+    term."""
+    from .krr import woodbury_dual_from_stats
+    Ws = (W * weights[None, :]) * weights[:, None]
+    p = Ws.shape[0]
+    A = 0.5 * (Ws + Ws.T) + n * gamma * torch.eye(p, dtype=W.dtype,
+                                                  device=W.device)
+    Lchol = torch.linalg.cholesky(A)
+    t1 = torch.linalg.solve_triangular(Lchol, CtC, upper=False)
+    G_F = torch.linalg.solve_triangular(Lchol, t1.T, upper=False).T
+    vec = Cty.ndim == 1
+    b_F = torch.linalg.solve_triangular(
+        Lchol, Cty[:, None] if vec else Cty, upper=False)
+    dual = woodbury_dual_from_stats(G_F, b_F, n * lam)
+    beta = torch.linalg.solve_triangular(Lchol.T, dual, upper=True)
+    return beta[:, 0] if vec else beta

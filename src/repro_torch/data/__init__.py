@@ -1,2 +1,7 @@
-"""Synthetic data generators (numpy, seeded)."""
-from .pipeline import pumadyn_like
+"""Data: synthetic generators (numpy, seeded), chunk sources for
+out-of-core fits, and CSR sparse rows."""
+from .chunks import (ArrayChunkSource, Chunk, ChunkSource,
+                     GeneratorChunkSource, MemmapChunkSource, as_chunk_source,
+                     gather_rows)
+from .pipeline import pumadyn_like, rcv1_like
+from .sparse import CsrMatrix, SparseChunkSource, is_sparse_matrix

@@ -14,6 +14,7 @@ from ..core.precision import to_dtype
 from . import ref
 from .rbf_block import default_acc, kernel_block
 from .rls_scores import rls_scores_fused
+from .sparse_block import sparse_cross
 
 
 def _on_cuda(*tensors: Tensor) -> bool:
@@ -65,12 +66,34 @@ def rls_scores(B: Tensor, M: Tensor, *, acc_dtype=None) -> Tensor:
     return ref.rls_scores_ref(B.to(acc), M.to(acc)).to(B.dtype)
 
 
+def sparse_block(data: Tensor, indices: Tensor, indptr: Tensor, Z: Tensor,
+                 *, kind: str = "rbf", bandwidth: float = 1.0,
+                 degree: int = 2, scale: float = 1.0, offset: float = 1.0,
+                 acc_dtype=None) -> Tensor:
+    """CSR kernel block k(X_csr, Z) for ``kind`` ∈ {rbf, linear, poly}, in
+    the result dtype ``promote(data, Z)``, accumulating in ``acc_dtype``
+    (default: the result dtype). CUDA operands launch K3 ``sparse_cross``
+    (epilogue fused); CPU operands take the unfused plain version."""
+    out = torch.promote_types(data.dtype, Z.dtype)
+    if _on_cuda(data, indices, indptr, Z):
+        return sparse_cross(data.to(out).contiguous(), indices.contiguous(),
+                            indptr.contiguous(), Z.to(out).contiguous(),
+                            kind=kind, bandwidth=bandwidth, degree=degree,
+                            scale=scale, offset=offset, acc_dtype=acc_dtype)
+    acc = out if acc_dtype is None else to_dtype(acc_dtype)
+    return ref.sparse_kernel_block_ref(
+        data, indices, indptr, Z, kind=kind, bandwidth=bandwidth,
+        degree=degree, scale=scale, offset=offset, acc_dtype=acc)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``."""
     return {"kernel_block": kernel_block.launches,
-            "rls_scores": rls_scores_fused.launches}
+            "rls_scores": rls_scores_fused.launches,
+            "sparse_cross": sparse_cross.launches}
 
 
 def reset_launch_counts() -> None:
     kernel_block.launches = 0
     rls_scores_fused.launches = 0
+    sparse_cross.launches = 0

@@ -86,7 +86,8 @@ def test_main_path_through_hopper_backend_on_cpu():
     close(model.state().beta, ref.state().beta, **F64)
     close(model.predict_batched(Xt, batch_size=32), ref.predict(
         jnp.asarray(Xt)), **F64)
-    assert kops.launch_counts() == {"kernel_block": 0, "rls_scores": 0}
+    assert kops.launch_counts() == {"kernel_block": 0, "rls_scores": 0,
+                                    "sparse_cross": 0}
 
 
 @pytest.mark.parametrize("solver", ["nystrom", "nystrom_regularized"])

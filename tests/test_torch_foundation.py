@@ -14,6 +14,7 @@ from _torch_ops_cases import KERNELS, inputs, kernels
 from repro.core import precision as jp
 from repro_torch.core import kernels as tk
 from repro_torch.core import precision as tp
+from repro_torch.data import CsrMatrix
 
 
 # ---------------------------------------------------------------- kernels
@@ -30,9 +31,14 @@ def test_gram_and_diag_match_reference(name, dtype):
 
 
 def test_sparse_inputs_name_their_roadmap_item():
-    X = torch.eye(4).to_sparse()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        tk.RBFKernel().gram(X, torch.eye(4))
+    # ROADMAP item 8 is ported: CSR rows are a CsrMatrix, which the kernels
+    # evaluate without densifying; PyTorch's own sparse layouts are refused
+    # with a pointer to it
+    X = torch.eye(4, dtype=torch.float64)
+    csr = CsrMatrix.from_dense(X).cast()
+    assert torch.equal(tk.RBFKernel().gram(csr, X), tk.RBFKernel().gram(X, X))
+    with pytest.raises(NotImplementedError, match="CsrMatrix"):
+        tk.RBFKernel().gram(X.to_sparse(), X)
 
 
 # -------------------------------------------------------------- precision

@@ -17,7 +17,7 @@ import sys
 import pytest
 import torch
 
-from repro_torch.kernels import ops, rbf_block, rls_scores
+from repro_torch.kernels import ops, rbf_block, rls_scores, sparse_block
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -33,7 +33,9 @@ def _forbidden(module: str) -> bool:
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import sys, repro_torch.api, repro_torch.core, "
-            "repro_torch.kernels.ops, repro_torch.data\n"
+            "repro_torch.kernels.ops, repro_torch.data, "
+            "repro_torch.api.out_of_core, repro_torch.data.chunks, "
+            "repro_torch.data.sparse, repro_torch.kernels.sparse_block\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -68,7 +70,11 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.linear_block(X, X[:8])
     ops.poly_block(X, X[:8], degree=3)
     ops.rls_scores(X, torch.eye(5))
-    assert ops.launch_counts() == {"kernel_block": 0, "rls_scores": 0}
+    ops.sparse_block(X.reshape(-1), torch.zeros(200, dtype=torch.int32),
+                     torch.arange(0, 201, 5, dtype=torch.int32), X[:8],
+                     kind="rbf")
+    assert ops.launch_counts() == {"kernel_block": 0, "rls_scores": 0,
+                                   "sparse_cross": 0}
 
 
 def test_bf16_card_request_raises(monkeypatch):
@@ -76,6 +82,7 @@ def test_bf16_card_request_raises(monkeypatch):
     # must refuse bf16 before anything is built or launched
     monkeypatch.setattr(rbf_block, "check_cuda", lambda *a: None)
     monkeypatch.setattr(rls_scores, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(sparse_block, "check_cuda", lambda *a: None)
     ops.reset_launch_counts()
     X = torch.zeros(4, 3, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="bf16"):
@@ -83,7 +90,13 @@ def test_bf16_card_request_raises(monkeypatch):
     with pytest.raises(TypeError, match="bf16"):
         rls_scores.rls_scores_fused(torch.zeros(4, 3, dtype=torch.bfloat16),
                                     torch.zeros(3, 3))
-    assert ops.launch_counts() == {"kernel_block": 0, "rls_scores": 0}
+    with pytest.raises(TypeError, match="bf16"):
+        sparse_block.sparse_cross(
+            torch.zeros(4, dtype=torch.bfloat16),
+            torch.zeros(4, dtype=torch.int32),
+            torch.tensor([0, 4], dtype=torch.int32), X)
+    assert ops.launch_counts() == {"kernel_block": 0, "rls_scores": 0,
+                                   "sparse_cross": 0}
 
 
 def test_wrappers_refuse_cpu_tensors_and_dispatch_refuses_other_devices():
@@ -92,6 +105,10 @@ def test_wrappers_refuse_cpu_tensors_and_dispatch_refuses_other_devices():
         rbf_block.kernel_block(X, X)
     with pytest.raises(ValueError, match="CUDA"):
         rls_scores.rls_scores_fused(X, torch.zeros(3, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_block.sparse_cross(torch.zeros(4),
+                                  torch.zeros(4, dtype=torch.int32),
+                                  torch.tensor([0, 4], dtype=torch.int32), X)
     meta = torch.empty(4, 3, device="meta")
     with pytest.raises(ValueError, match="no kernel route"):
         ops.rbf_block(meta, meta)
