@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA GPU
 
-Drives ``repro_torch`` (never the JAX package) through eight phases and
+Drives ``repro_torch`` (never the JAX package) through ten phases and
 exits non-zero on any failure:
 
   1. build     compile the CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -18,15 +18,20 @@ exits non-zero on any failure:
                poly x {f32, f64} and the two mixed builds at a ragged CSR
                shape (empty rows, padding slots past indptr[-1]), at
                (8, 8, 1), and at one full chunk of the sparse cell.
-  5. main      the paper's fit -> predict path at full size: MSD-shaped data
+  5. k4        K4 ``flash_attention`` against its plain version, float32 and
+               bfloat16 x (hq, hkv) in {(8,8), (8,2), (4,1)} x {causal,
+               non-causal, causal + window 64} x S in {32, 96, 256, 512} x
+               D in {32, 64, 128}, and at the prefill's own shape
+               (1, 24, 8192, 128), bfloat16, causal.
+  6. main      the paper's fit -> predict path at full size: MSD-shaped data
                (n = 463,715 train, 51,630 test, d = 90) from
                ``pumadyn_like(dim=90, seed=0)``, SketchConfig(RBFKernel(6.0),
                p=2048, lam=1e-6) with the defaults rls_fast / nystrom / auto,
                fit then predict_batched(batch_size=256); launch counts are
                zeroed just before and read just after.
-  6. parity    the same fit at n = 20,000 through backend "hopper" and
+  7. parity    the same fit at n = 20,000 through backend "hopper" and
                backend "torch" on the card, with the same draws injected.
-  7. sparse    the out-of-core CSR path at the RCV1 shape (677,399 train and
+  8. sparse    the out-of-core CSR path at the RCV1 shape (677,399 train and
                20,242 test rows, d = 47,236, about 74 values per row) from
                ``rcv1_like(seed=0)``: SketchConfig(RBFKernel(1.0), p=2048,
                lam=1e-6, chunk_rows=131,072, f32 data with f64
@@ -37,13 +42,21 @@ exits non-zero on any failure:
                torch and the CSR fit against the dense fit of the same rows
                densified (K3 against K1); fit(SparseChunkSource) against
                fit(CsrMatrix), and partial_fit over three chunks + finalize.
-  8. summary   each kernel's time at its path's shapes (CUDA events), its
+  9. lm        the dense LM at phi4-mini-3.8b's published widths (32 layers,
+               d_model 3072, 24 query / 8 KV heads, vocab 200,064), bfloat16,
+               use_pallas, random weights from seed 0: the prefill of 1 x
+               8,192 tokens (one K4 launch per layer, counts zeroed before
+               and read after), its profile, its parity against the plain
+               chunked attention, decode_step against the prefill at 64
+               tokens, and ServeEngine(slots=4, max_len=1024) answering 8
+               requests of 32 new tokens.
+ 10. summary   each kernel's time at its path's shapes (CUDA events), its
                plain version's, the matching PyTorch library call's, and
                its bound; one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 
 ``--phases`` runs a subset (``build,k3,sparse`` is the short call for the
-sparse path); the default runs all eight.
+sparse path, ``build,k4,lm,summary`` for the LM); the default runs all ten.
 Results are also written to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -56,13 +69,14 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "k1", "k2", "k3", "main", "parity", "sparse",
-          "summary")
+PHASES = ("build", "k1", "k2", "k3", "k4", "main", "parity", "sparse",
+          "lm", "summary")
 
 # H100 SXM data sheet, the card's peak rate for each type: float32 on the
 # CUDA cores (IEEE, no tensor cores), float64 on the FP64 tensor cores (the
-# CUDA cores alone give half of it); HBM3 bandwidth
-PEAK_OPS = {"float32": 67e12, "float64": 67e12}
+# CUDA cores alone give half of it), bfloat16 on the tensor cores (dense);
+# HBM3 bandwidth
+PEAK_OPS = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
 N_TRAIN, N_TEST, DIM = 463_715, 51_630, 90
@@ -110,6 +124,31 @@ PARITY_TOL = {"scores": 1e-4, "predictions": 2e-2, "beta": 2e-2}
 # policy); the tolerances leave a margin of about 5 over that worst case
 SPARSE_PARITY_TOL = {"scores": 1e-2, "predictions": 2e-5, "beta": 2e-5}
 K3_TOL = {"float32": 2e-5, "float64": 1e-12}      # atol on blocks
+
+# K4 against its plain version: float32 at the atol of
+# tests/test_kernels_pallas.py; bfloat16 compared in float32, where both run
+# the same float32 arithmetic and differ by at most one rounding of the
+# output: the float32 atol plus one bf16 spacing (at most 2^-7 of the value)
+K4_ATOL, K4_BF16_RTOL = 2e-5, 2.0 ** -7
+K4_GQA = ((8, 8), (8, 2), (4, 1))
+K4_MASKS = ((True, 0), (False, 0), (True, 64))
+# the LM cell: phi4-mini-3.8b at its published widths, one prefill of
+# LM_SEQ tokens, and the serve engine's load
+LM_ARCH, LM_SEQ, LM_DECODE_PROMPT = "phi4-mini-3.8b", 8192, 64
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 4, 1024, 8, 32
+# prefill through K4 against prefill through the plain chunked attention,
+# and decode against prefill: both sides compute attention in float32 and
+# round its output to bfloat16; the float32 sums differ in order (~1e-7
+# relative), which flips some of those roundings by one bf16 spacing, and
+# the flips travel through 32 bf16 layers into bf16 logits. On the CPU a
+# cut of this config (8 layers, d_model 768, S = 1,280;
+# tools/lm_bf16_parity_probe.py) moved the logits by at most 0.0625 (one
+# bf16 spacing of a logit of 8 to 16) against a largest logit of 17.4, with
+# every arg-max equal. The tolerance: max |Δ| within
+# 2^-4 of the largest |logit| (8 spacings of it), and the arg-max equal at
+# 99 % of the positions or more (a position whose top two logits lie closer
+# than the rounding can flip)
+LM_LOGIT_RTOL, LM_ARGMAX_AGREE = 2.0 ** -4, 0.99
 
 
 def log(msg: str) -> None:
@@ -416,6 +455,62 @@ def phase_k3(res: dict, keep: dict) -> None:
     res["k3_check_max_abs_err"] = worst
 
 
+def _k4_check(q, k, v, causal: bool, window: int) -> float:
+    """K4 against its plain version on one input; returns max |Δ| and
+    fails past the tolerance of q's dtype."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"k4 returned {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - want.float()).abs()
+    rtol = K4_BF16_RTOL if q.dtype == torch.bfloat16 else 0.0
+    excess = float((diff - K4_ATOL - rtol * want.float().abs()).max())
+    check(excess <= 0, f"k4 {tuple(q.shape)} {q.dtype} causal={causal} "
+          f"window={window}: max|Δ| {float(diff.max()):.3e} past the "
+          f"tolerance by {excess:.3e}")
+    return float(diff.max())
+
+
+def _k4_inputs(shape_q, hkv: int, dtype, seed: int):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, hq, s, d = shape_q
+    return tuple(torch.randn((b, h, s, d), generator=g, device="cuda")
+                 .to(dtype) for h in (hq, hkv, hkv))
+
+
+def phase_k4(res: dict, keep: dict) -> None:
+    import torch
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for hq, hkv in K4_GQA:
+            for causal, window in K4_MASKS:
+                err = 0.0
+                for s in (32, 96, 256, 512):
+                    for d in (32, 64, 128):
+                        q, k, v = _k4_inputs((2, hq, s, d), hkv, dtype,
+                                             seed=s + d + hq)
+                        err = max(err, _k4_check(q, k, v, causal, window))
+                log(f"[k4] {name} (hq,hkv)=({hq},{hkv}) causal={causal} "
+                    f"window={window}, S in 32/96/256/512, D in 32/64/128: "
+                    f"max|Δ|={err:.3e}")
+                worst[name] = max(worst.get(name, 0.0), err)
+    cfg = _lm_config()
+    shape = (1, cfg.n_heads, LM_SEQ, cfg.resolved_head_dim)
+    q, k, v = _k4_inputs(shape, cfg.n_kv_heads, torch.bfloat16, seed=7)
+    err = _k4_check(q, k, v, True, 0)
+    log(f"[k4] bfloat16 prefill shape {shape} (hkv {cfg.n_kv_heads}) causal: "
+        f"max|Δ|={err:.3e} (atol {K4_ATOL:g} + {K4_BF16_RTOL:g}·|want|)")
+    worst["prefill_shape"] = err
+    res["k4_check_max_abs_err"] = worst
+    keep["k4"] = True
+
+
 def _msd_data():
     import numpy as np
     from repro_torch.data import pumadyn_like
@@ -676,6 +771,203 @@ def phase_sparse(res: dict, keep: dict) -> None:
     res["sparse"]["partial_fit_mse"] = mse_pf
 
 
+def _lm_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), use_pallas=True,
+                               dtype="bfloat16")
+
+
+def _logit_parity(got, want) -> dict:
+    """max |Δ| against the largest |logit|, and the share of positions
+    whose arg-max agrees; (..., vocab) float32 logits."""
+    scale = float(want.abs().max())
+    return dict(max_abs=float((got - want).abs().max()), max_logit=scale,
+                argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                   .float().mean()))
+
+
+def phase_lm(res: dict, keep: dict) -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_model)
+    from repro_torch.runtime import Request, ServeEngine
+    cfg = _lm_config()
+    out = res["lm"] = dict(arch=LM_ARCH, seq=LM_SEQ, dtype=cfg.dtype,
+                           n_params=cfg.n_params())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()     # what earlier phases keep
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_bytes"] = torch.cuda.memory_allocated() - held
+    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {cfg.n_params() / 1e9:.3f} B parameters: "
+        f"{out['param_bytes'] / 1e9:.2f} GB of {cfg.dtype} weights made in "
+        f"{out['init_s']:.1f} s")
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LM_SEQ)),
+                             dtype=torch.int32, device="cuda")
+
+    # the prefill: a first run (the library loads, cuBLAS picks its
+    # kernels), then the measured run with the counts zeroed just before
+    t0 = time.perf_counter()
+    forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    out["first_prefill_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = forward(params, cfg, tokens).logits
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    out.update(prefill_s=wall, tokens_per_s=LM_SEQ / wall, launches=counts,
+               peak_bytes=torch.cuda.max_memory_allocated() - base,
+               held_bytes=held)
+    log(f"[lm] prefill 1 x {LM_SEQ}: {wall:.3f} s = "
+        f"{LM_SEQ / wall:.0f} tokens/s (first run {out['first_prefill_s']:.2f}"
+        f" s); launches {counts}; peak device memory "
+        f"{out['peak_bytes'] / 1e9:.2f} GB above the weights and the "
+        f"{held / 1e9:.2f} GB earlier phases hold")
+    check(logits.shape == (1, LM_SEQ, cfg.padded_vocab)
+          and logits.dtype == torch.float32,
+          f"logits {logits.dtype} {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {counts['flash_attention']} times in "
+          f"the prefill (expected {cfg.n_layers}, one per layer)")
+    prof = _profile(lambda: forward(params, cfg, tokens))
+    prof["busy_share_of_unprofiled_wall"] = prof["busy_us"] / 1e6 / wall
+    out["profile"] = prof
+    log(f"[lm] profiled prefill: device busy {prof['busy_us'] / 1e3:.1f} ms "
+        f"= {100 * prof['busy_share_of_unprofiled_wall']:.1f} % of the "
+        f"unprofiled {1e3 * wall:.0f} ms (profiled wall "
+        f"{prof['wall_us'] / 1e3:.0f} ms), {prof['launches']} device "
+        f"operations")
+    for row in prof["kernels"]:
+        log(f"[lm]   {row['device_us'] / 1e3:9.2f} ms  x{row['calls']:<4d} "
+            f"{row['name']}")
+
+    # parity: the same prefill through the plain chunked attention
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    t0 = time.perf_counter()
+    plain = forward(params, plain_cfg, tokens).logits
+    torch.cuda.synchronize()
+    out["plain_prefill_s"] = time.perf_counter() - t0
+    par = out["parity_plain"] = _logit_parity(logits, plain)
+    del plain, logits
+    log(f"[lm] prefill through K4 vs the plain chunked attention "
+        f"({out['plain_prefill_s']:.2f} s): max|Δ| {par['max_abs']:.4g} "
+        f"against a largest |logit| {par['max_logit']:.4g} (tolerance "
+        f"{LM_LOGIT_RTOL:g} of it), arg-max agrees at "
+        f"{100 * par['argmax_agree']:.2f} % of {LM_SEQ} positions (at least "
+        f"{100 * LM_ARGMAX_AGREE:g} %)")
+    check(par["max_abs"] <= LM_LOGIT_RTOL * par["max_logit"],
+          f"prefill parity: max|Δ| {par['max_abs']:.4g}")
+    check(par["argmax_agree"] >= LM_ARGMAX_AGREE,
+          f"prefill parity: arg-max agrees at {par['argmax_agree']:.4f}")
+
+    # decode against prefill: LM_DECODE_PROMPT decode steps give the
+    # forward's last logits and its greedy token
+    prompt = tokens[:, :LM_DECODE_PROMPT]
+    full = forward(params, cfg, prompt).logits[:, -1]
+    st = init_decode_state(cfg, 1, LM_DECODE_PROMPT, device="cuda")
+    for i in range(LM_DECODE_PROMPT):
+        lg, st = decode_step(params, cfg, prompt[:, i:i + 1], st)
+    dec = out["parity_decode"] = _logit_parity(lg[:, 0], full)
+    top2 = torch.topk(full[0], 2).values
+    gap = float(top2[0] - top2[1])
+    log(f"[lm] decode x{LM_DECODE_PROMPT} vs prefill, last position: max|Δ| "
+        f"{dec['max_abs']:.4g} against a largest |logit| "
+        f"{dec['max_logit']:.4g} (tolerance {LM_LOGIT_RTOL:g} of it); greedy "
+        f"tokens {int(lg[0, 0].argmax())} / {int(full[0].argmax())}, top-2 "
+        f"gap {gap:.4g}")
+    check(dec["max_abs"] <= LM_LOGIT_RTOL * dec["max_logit"],
+          f"decode parity: max|Δ| {dec['max_abs']:.4g}")
+    if gap > LM_LOGIT_RTOL * dec["max_logit"]:
+        check(dec["argmax_agree"] == 1.0, "decode and prefill pick different "
+              "greedy tokens")
+
+    # serving: 8 requests through 4 slots
+    engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    step_ms = []
+    step_fn = engine.step_fn
+
+    def timed(*a):
+        t = time.perf_counter()
+        r = step_fn(*a)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        return r
+
+    engine.step_fn = timed
+    lengths = rng.integers(16, 129, LM_REQUESTS)
+    for uid, n in enumerate(lengths):
+        engine.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=LM_NEW))
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    generated = sum(len(r.generated) for r in done)
+    kv_bytes = 2 * engine.caches.kv.k.numel() * engine.caches.kv.k.element_size()
+    out["serve"] = dict(requests=len(done), steps=engine.steps,
+                        prompt_lengths=[int(n) for n in lengths],
+                        generated=generated, seconds=serve_s,
+                        generated_per_s=generated / serve_s,
+                        median_step_ms=float(np.median(step_ms)),
+                        kv_cache_bytes=kv_bytes)
+    log(f"[lm] ServeEngine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}): "
+        f"{len(done)}/{LM_REQUESTS} requests (prompts of "
+        f"{int(lengths.min())}-{int(lengths.max())} tokens), {engine.steps} "
+        f"steps in {serve_s:.2f} s, {generated} tokens generated = "
+        f"{generated / serve_s:.1f} tokens/s, median step "
+        f"{np.median(step_ms):.2f} ms, KV cache {kv_bytes / 1e9:.2f} GB")
+    check(len(done) == LM_REQUESTS and all(
+        len(r.generated) == LM_NEW for r in done),
+        f"served {len(done)} of {LM_REQUESTS} requests")
+
+    # where a serve step's time goes: four decode steps of the engine's
+    # batch, unprofiled then under the profiler
+    st0 = init_decode_state(cfg, LM_SLOTS, 8, device="cuda")
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device="cuda")
+
+    def four_steps():
+        st = st0
+        for _ in range(4):
+            _, st = decode_step(params, cfg, tok, st)
+
+    four_steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    four_steps()
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    prof = _profile(four_steps)
+    prof["busy_share_of_unprofiled_wall"] = prof["busy_us"] / 1e6 / wall4
+    out["serve"]["profile"] = prof
+    log(f"[lm] 4 decode steps of {LM_SLOTS} slots: {1e3 * wall4:.1f} ms, "
+        f"device busy {prof['busy_us'] / 1e3:.2f} ms = "
+        f"{100 * prof['busy_share_of_unprofiled_wall']:.1f} % of it, "
+        f"{prof['launches']} device operations")
+    for row in prof["kernels"][:8]:
+        log(f"[lm]   {row['device_us'] / 1e3:9.3f} ms  x{row['calls']:<4d} "
+            f"{row['name']}")
+    del engine, params
+    torch.cuda.empty_cache()
+    keep["lm"] = True
+
+
 def _profile(run) -> dict:
     """Device time by kernel over one more ``run()`` (a fit and its
     predictions), under ``torch.profiler`` (CUPTI), and the device's busy
@@ -700,6 +992,7 @@ def _profile(run) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     return dict(wall_us=wall_us, busy_us=busy, busy_share=busy / wall_us,
+                launches=sum(r[2] for r in rows),
                 kernels=[dict(name=k[:90], device_us=us, calls=c)
                          for k, us, c in rows[:15]])
 
@@ -710,13 +1003,20 @@ def _bound_ms(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _launches(res: dict, phase: str, kernel: str) -> int | None:
+    """The kernel's launches in ``phase``'s run of the main path; None when
+    that phase did not run, so no row shows a count nobody measured."""
+    if phase not in res:
+        return None
+    return res[phase]["launches"].get(kernel, 0)
+
+
 def _summary_dense(res: dict, keep: dict) -> list[dict]:
     """K1 and K2 rows, at the main path's shapes."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rbf_block import kernel_block
     from repro_torch.kernels.rls_scores import rls_scores_fused
-    launches = res.get("main", {}).get("launches", {})
     X = torch.as_tensor(keep["Xtr"], device="cuda")
     Z = keep["Z"].contiguous()
     n, d = X.shape
@@ -765,12 +1065,14 @@ def _summary_dense(res: dict, keep: dict) -> list[dict]:
         dict(name="kernel_block", route="cuda",
              source=f"{src}/kernel_block.cu",
              replaces="src/repro/kernels/rbf_block.py:84",
-             launches=launches.get("kernel_block", 0), max_abs_err=err1,
+             launches=_launches(res, "main", "kernel_block"),
+             max_abs_err=err1,
              ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
              library_ms=None),
         dict(name="rls_scores", route="cuda", source=f"{src}/rls_scores.cu",
              replaces="src/repro/kernels/rls_scores.py:37",
-             launches=launches.get("rls_scores", 0), max_abs_err=err2,
+             launches=_launches(res, "main", "rls_scores"),
+             max_abs_err=err2,
              ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
              library_ms=lib2),
     ]
@@ -834,13 +1136,63 @@ def _summary_sparse(res: dict, keep: dict) -> dict:
     return dict(name="sparse_cross", route="cuda",
                 source="src/repro_torch/kernels/csrc/sparse_cross.cu",
                 replaces="src/repro/kernels/sparse_block.py:149",
-                launches=res.get("sparse", {}).get("launches", {}).get(
-                    "sparse_cross", 0),
+                launches=_launches(res, "sparse", "sparse_cross"),
                 max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=b3,
                 bound_by=by3, library_ms=lib3,
                 # library_ms times the linear kind in float32, which K3
                 # computes in library_kernel_ms
                 library_fn="linear, float32", library_kernel_ms=lin3)
+
+
+def _summary_attention(res: dict) -> dict:
+    """K4's row at the prefill's shape (bfloat16, causal), beside its plain
+    version and PyTorch's scaled_dot_product_attention on the same
+    tensors."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = _lm_config()
+    B, Hq, Hkv, S, D = (1, cfg.n_heads, cfg.n_kv_heads, LM_SEQ,
+                        cfg.resolved_head_dim)
+    q, k, v = _k4_inputs((B, Hq, S, D), Hkv, torch.bfloat16, seed=8)
+    err = _k4_check(q, k, v, True, 0)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), reps=10)
+    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), reps=3)
+    try:
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        lib()
+        lib_fn = "scaled_dot_product_attention(is_causal, enable_gqa)"
+    except TypeError:     # a torch without enable_gqa: K/V expanded
+        kx = k.repeat_interleave(Hq // Hkv, dim=1)
+        vx = v.repeat_interleave(Hq // Hkv, dim=1)
+
+        def lib():
+            return F.scaled_dot_product_attention(q, kx, vx, is_causal=True)
+        lib_fn = "scaled_dot_product_attention(is_causal), K/V expanded"
+    lib_ms = cuda_ms(lib, reps=10)
+    lib_err = float((lib().float() - flash_attention(q, k, v).float())
+                    .abs().max())
+    pairs = B * Hq * S * (S + 1) // 2          # causal live (query, key)
+    bound, by = _bound_ms(4 * D * pairs, 2 * (2 * B * Hq + 2 * B * Hkv) * S
+                          * D, "bfloat16")
+    log(f"[summary] K4 (B,Hq,Hkv,S,D)=({B},{Hq},{Hkv},{S},{D}) bf16 causal: "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, {lib_fn} {lib_ms:.3f} ms "
+        f"(max|Δ| to K4 {lib_err:.3e}), bound {bound:.3f} ms ({by}, "
+        f"{4 * D * pairs / 1e9:.1f} GFLOP at the bf16 tensor-core peak; "
+        f"{4 * D * pairs / PEAK_OPS['float32'] * 1e3:.3f} ms at the float32 "
+        f"CUDA-core rate K4 computes at), max|Δ| {err:.3e}")
+    res["k4_timing"] = dict(library_fn=lib_fn, library_max_abs_diff=lib_err,
+                            f32_rate_bound_ms=4 * D * pairs
+                            / PEAK_OPS["float32"] * 1e3)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:97",
+                launches=_launches(res, "lm", "flash_attention"),
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, library_fn=lib_fn)
 
 
 def phase_summary(res: dict, keep: dict) -> None:
@@ -850,6 +1202,8 @@ def phase_summary(res: dict, keep: dict) -> None:
         rows += _summary_dense(res, keep)
     if "rcv1" in keep:
         rows.append(_summary_sparse(res, keep))
+    if "lm" in keep or "k4" in keep:
+        rows.append(_summary_attention(res))
     res["kernels"] = rows
 
 
@@ -897,12 +1251,16 @@ def main() -> int:
             phase_k2(res)
         elif name == "k3":
             phase_k3(res, keep)
+        elif name == "k4":
+            phase_k4(res, keep)
         elif name == "main":
             phase_main(res, keep)
         elif name == "parity":
             phase_parity(res, keep)
         elif name == "sparse":
             phase_sparse(res, keep)
+        elif name == "lm":
+            phase_lm(res, keep)
         elif name == "summary":
             phase_summary(res, keep)
         log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")

@@ -12,6 +12,7 @@ from torch import Tensor
 
 from ..core.precision import to_dtype
 from . import ref
+from .flash_attention import attention_shapes, flash_attention
 from .rbf_block import default_acc, kernel_block
 from .rls_scores import rls_scores_fused
 from .sparse_block import sparse_cross
@@ -86,14 +87,32 @@ def sparse_block(data: Tensor, indices: Tensor, indptr: Tensor, Z: Tensor,
         degree=degree, scale=scale, offset=offset, acc_dtype=acc)
 
 
+def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+              window: int = 0, scale: float = 0.0) -> Tensor:
+    """Exact GQA softmax attention, q (B, Hq, S, D) against k, v
+    (B, Hkv, S, D) → (B, Hq, S, D) in q's dtype; ``window > 0`` is a
+    sliding window, ``scale = 0`` means 1/√D. The Pallas wrapper's shape
+    contract holds on both routes (``attention_shapes``). CUDA operands
+    launch K4 ``flash_attention``; CPU operands take its plain version."""
+    attention_shapes(q, k, v)
+    if _on_cuda(q, k, v):
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window,
+                               scale=scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``."""
     return {"kernel_block": kernel_block.launches,
             "rls_scores": rls_scores_fused.launches,
-            "sparse_cross": sparse_cross.launches}
+            "sparse_cross": sparse_cross.launches,
+            "flash_attention": flash_attention.launches}
 
 
 def reset_launch_counts() -> None:
     kernel_block.launches = 0
     rls_scores_fused.launches = 0
     sparse_cross.launches = 0
+    flash_attention.launches = 0

@@ -79,3 +79,76 @@ def sparse_kernel_block_ref(data: Tensor, indices: Tensor, indptr: Tensor,
     d2 = torch.clamp_min(row_sq[:, None] + zz[None, :]
                          - 2.0 * cross.to(acc), 0.0)
     return torch.exp(-d2 / (2.0 * bandwidth * bandwidth)).to(out_dtype)
+
+
+def attention_mask(q_pos: Tensor, k_pos: Tensor, causal: bool,
+                   window: int) -> Tensor:
+    """(len(q_pos), len(k_pos)) visibility: causal (q ≥ k) and the sliding
+    window (q − k < window) when ``window > 0``."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return mask
+
+
+def attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
+                  scale: float | None = None, causal: bool = True,
+                  window: int = 0) -> Tensor:
+    """Exact (GQA-aware) softmax attention, the reference's ``attention_ref``
+    arithmetic: logits in the input dtype, then float32 and scaled; masked
+    logits are −inf. q: (B, Hq, S, D), k/v: (B, Hkv, S, D)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    if Hkv != Hq:
+        k = k.repeat_interleave(Hq // Hkv, dim=1)
+        v = v.repeat_interleave(Hq // Hkv, dim=1)
+    s = scale if scale is not None else 1.0 / (D**0.5)
+    logits = torch.matmul(q, k.transpose(-1, -2)).float() * s
+    pos = torch.arange(S, device=q.device)
+    logits = logits.masked_fill(~attention_mask(pos, pos, causal, window),
+                                float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.matmul(w, v.float()).to(q.dtype)
+
+
+# query rows per step of ``flash_attention_ref``: bounds its float32 logits
+# at (B, Hq, 1024, S), 0.8 GB at the LM cell's prefill (24 heads, S = 8192)
+REF_ROWS = 1024
+
+
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        scale: float = 0.0) -> Tensor:
+    """K4's plain version, in the Pallas kernel's own arithmetic: q, k and v
+    upcast to float32, q scaled before the product (``scale = 0`` ⇒ 1/√D),
+    masked logits set to −1e30 and their weights to 0, the normaliser
+    floored at 1e-30, the result cast to q's dtype. GQA: query head h reads
+    KV head h // (Hq / Hkv). Exact softmax over all keys, ``REF_ROWS``
+    query rows at a time (the kernel's online softmax gives the same function);
+    q: (B, Hq, S, D), k/v: (B, Hkv, S, D)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    g = Hq // Hkv
+    s = scale or 1.0 / (D**0.5)
+    qf = q.float().reshape(B, Hkv, g, S, D) * s
+    kt = k.float().transpose(-1, -2)                     # (B, Hkv, D, S)
+    vf = v.float()
+    out = torch.empty((B, Hkv, g, S, D), dtype=q.dtype, device=q.device)
+    k_pos = torch.arange(S, device=q.device)
+    for lo in range(0, S, REF_ROWS):
+        hi = min(lo + REF_ROWS, S)
+        c = hi - lo
+        logits = torch.matmul(qf[:, :, :, lo:hi].reshape(B, Hkv, g * c, D),
+                              kt).reshape(B, Hkv, g, c, S)
+        mask = attention_mask(k_pos[lo:hi], k_pos, causal, window)
+        logits = logits.masked_fill(~mask, -1e30)
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m).masked_fill(~mask, 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.matmul(p.reshape(B, Hkv, g * c, S), vf).reshape(
+            B, Hkv, g, c, D)
+        out[:, :, :, lo:hi] = (o / l.clamp_min(1e-30)).to(q.dtype)
+    return out.reshape(B, Hq, S, D)

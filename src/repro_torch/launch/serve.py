@@ -1,0 +1,73 @@
+"""Serving launcher: batched generation with the continuous-batching engine.
+
+``python -m repro_torch.launch.serve --arch phi4-mini-3.8b --requests 8``
+runs the reduced (~100M) variant of the arch (``build_small_cfg``) on the
+card; ``--device cpu`` runs it on the CPU through the plain versions.
+``--nystrom`` (the paper's RLS-compressed KV reads) is ROADMAP item 12.4.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+
+from ..configs import get_config
+from ..models import init_model
+from ..models.attention import NYSTROM_TODO
+from ..runtime import Request, ServeEngine
+
+
+def build_small_cfg(arch: str, **over):
+    """~100M-scale variant of an arch (the reference's
+    ``launch/train.py::build_small_cfg``, without its moe / ssm / hybrid
+    reductions: ``init_model`` refuses those families)."""
+    cfg = get_config(arch)
+    small = dict(n_layers=min(cfg.n_layers, 8),
+                 d_model=512,
+                 n_heads=8 if cfg.n_heads else 0,
+                 n_kv_heads=max(1, min(cfg.n_kv_heads, 4)) if cfg.n_heads
+                 else 0,
+                 head_dim=64 if cfg.n_heads else 0,
+                 d_ff=1536 if cfg.d_ff else 0,
+                 vocab_size=min(cfg.vocab_size, 32_000),
+                 vocab_pad_multiple=128,
+                 dtype="float32")
+    small.update(over)
+    return dataclasses.replace(cfg, **small)
+
+
+def main(argv: list[str] | None = None) -> list[Request]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=512)
+    ap.add_argument("--nystrom", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.nystrom:
+        raise NotImplementedError(NYSTROM_TODO)
+
+    cfg = build_small_cfg(args.arch)
+    params = init_model(cfg, device=args.device)     # seed 0
+    engine = ServeEngine(cfg, params, slots=args.slots,
+                         max_len=args.max_len)
+
+    rng = np.random.default_rng(0)
+    for uid in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab_size,
+                              size=rng.integers(4, 12)).astype(np.int32)
+        engine.submit(Request(uid=uid, prompt=prompt,
+                              max_new_tokens=args.max_new))
+    done = engine.run()
+    for req in sorted(done, key=lambda r: r.uid):
+        print(f"req {req.uid}: prompt_len={len(req.prompt)} "
+              f"generated={req.generated[:8]}...")
+    print(f"served {len(done)}/{args.requests} requests")
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,8 @@
+"""The LM stack of the port: the dense family's prefill and decode."""
+from .convert import params_from_reference
+from .transformer import (DecodeCaches, ForwardOut, decode_step, forward,
+                          forward_hidden, init_decode_state, init_model)
+
+__all__ = ["DecodeCaches", "ForwardOut", "decode_step", "forward",
+           "forward_hidden", "init_decode_state", "init_model",
+           "params_from_reference"]

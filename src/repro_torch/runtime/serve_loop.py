@@ -1,0 +1,122 @@
+"""Serving runtime: lock-step continuous batching over the decode step.
+
+The port of ``runtime/serve_loop.py``'s LM half. ``make_serve_step``
+returns the one-token step; ``ServeEngine`` is the host-side loop that
+admits requests into free slots, feeds one token per slot per step
+(prompt tokens while a slot prefills, then its last generated token),
+decodes in lock-step and retires finished sequences. The reference's
+``KRRServeEngine`` belongs to the serve plane, ROADMAP item 10.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from ..configs.base import ModelConfig
+from ..models import decode_step, init_decode_state
+from ..serve.queue import FifoQueue
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """(params, tokens (b, 1), caches) → (logits, caches)."""
+
+    def serve_step(params: Any, tokens: Tensor, caches: Any):
+        return decode_step(params, cfg, tokens, caches)
+
+    return serve_step
+
+
+def greedy_sample(logits: Tensor) -> Tensor:
+    """The arg-max token of the last position: (b, s, v) → (b, 1)."""
+    return torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (prompt_len,) int32
+    max_new_tokens: int
+    generated: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Lock-step continuous batching over a fixed slot count (batch dim).
+
+    Every engine step feeds ONE token per slot, so the single global cache
+    write pointer advances uniformly, and per-slot ``start`` offsets (set
+    at admission) isolate each request's visible history. Freed slots are
+    refilled from the queue at once. The KV caches live on the parameters'
+    device and are updated in place.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, slots: int,
+                 max_len: int):
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.device = params["embed"]["table"].device
+        self.step_fn = make_serve_step(cfg)
+        self.caches = init_decode_state(cfg, slots, max_len,
+                                        device=self.device)
+        self.slot_req: list[Request | None] = [None] * slots
+        self.prompt_pos = [0] * slots
+        self.last_tok = [0] * slots
+        self.queue: FifoQueue[Request] = FifoQueue()
+        self.finished: list[Request] = []
+        self.steps = 0
+
+    def submit(self, req: Request) -> None:
+        self.queue.push(req)
+
+    def _admit(self) -> None:
+        for s in range(self.slots):
+            if self.slot_req[s] is None and len(self.queue):
+                self.slot_req[s] = self.queue.pop()
+                self.prompt_pos[s] = 0
+                # the new request must not see the slot's previous history
+                self.caches.start[s] = self.caches.length
+
+    def _next_inputs(self) -> Tensor:
+        toks = np.zeros((self.slots, 1), np.int32)
+        for s, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            if self.prompt_pos[s] < len(req.prompt):
+                toks[s, 0] = int(req.prompt[self.prompt_pos[s]])
+            else:
+                toks[s, 0] = self.last_tok[s]
+        return torch.as_tensor(toks, device=self.device)
+
+    def run(self, max_steps: int = 1_000) -> list[Request]:
+        for _ in range(max_steps):
+            self._admit()
+            if all(r is None for r in self.slot_req) and not len(self.queue):
+                break
+            if self.caches.length >= self.max_len - 1:
+                break  # cache exhausted — production would re-allocate
+            logits, self.caches = self.step_fn(self.params,
+                                               self._next_inputs(),
+                                               self.caches)
+            self.steps += 1
+            nxt = greedy_sample(logits).cpu().numpy().reshape(self.slots, -1)
+            for s, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                if self.prompt_pos[s] < len(req.prompt):
+                    self.prompt_pos[s] += 1
+                    if self.prompt_pos[s] < len(req.prompt):
+                        continue          # still prefilling
+                tok = int(nxt[s, 0])
+                req.generated.append(tok)
+                self.last_tok[s] = tok
+                if len(req.generated) >= req.max_new_tokens:
+                    req.done = True
+                    self.finished.append(req)
+                    self.slot_req[s] = None
+        return self.finished

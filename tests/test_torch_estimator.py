@@ -87,7 +87,8 @@ def test_main_path_through_hopper_backend_on_cpu():
     close(model.predict_batched(Xt, batch_size=32), ref.predict(
         jnp.asarray(Xt)), **F64)
     assert kops.launch_counts() == {"kernel_block": 0, "rls_scores": 0,
-                                    "sparse_cross": 0}
+                                    "sparse_cross": 0,
+                                    "flash_attention": 0}
 
 
 @pytest.mark.parametrize("solver", ["nystrom", "nystrom_regularized"])

@@ -5,8 +5,9 @@ The port never imports JAX or the JAX package. The import check runs in a
 subprocess, because tests/conftest.py has already imported JAX into this
 one; the source scan covers every module of ``src/repro_torch`` and
 ``chip_smoke.py``, including imports that only run inside functions.
-On the CPU the kernel wrappers never launch a kernel, a bf16 request for
-the card raises, and a device without a kernel route raises.
+On the CPU the kernel wrappers never launch a kernel (K4 included), a bf16
+request for the card raises for K1-K3, and a device without a kernel
+route raises.
 """
 import ast
 import os
@@ -17,14 +18,16 @@ import sys
 import pytest
 import torch
 
-from repro_torch.kernels import ops, rbf_block, rls_scores, sparse_block
+from repro_torch.kernels import (flash_attention, ops, rbf_block,
+                                 rls_scores, sparse_block)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SCANNED = {"repro_torch": sorted(PORT.glob("*.py")),
            "chip_smoke.py": [ROOT / "chip_smoke.py"]}
 SCANNED.update({sub: sorted((PORT / sub).rglob("*.py"))
-                for sub in ("api", "core", "data", "kernels")})
+                for sub in ("api", "core", "data", "kernels", "configs",
+                            "models", "serve", "runtime", "launch")})
 
 
 def _forbidden(module: str) -> bool:
@@ -35,7 +38,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import sys, repro_torch.api, repro_torch.core, "
             "repro_torch.kernels.ops, repro_torch.data, "
             "repro_torch.api.out_of_core, repro_torch.data.chunks, "
-            "repro_torch.data.sparse, repro_torch.kernels.sparse_block\n"
+            "repro_torch.data.sparse, repro_torch.kernels.sparse_block, "
+            "repro_torch.configs, repro_torch.models, repro_torch.serve, "
+            "repro_torch.runtime, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -73,8 +78,11 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.sparse_block(X.reshape(-1), torch.zeros(200, dtype=torch.int32),
                      torch.arange(0, 201, 5, dtype=torch.int32), X[:8],
                      kind="rbf")
+    q = torch.randn(1, 4, 32, 16)
+    ops.attention(q, q[:, :2], q[:, :2], window=8)
     assert ops.launch_counts() == {"kernel_block": 0, "rls_scores": 0,
-                                   "sparse_cross": 0}
+                                   "sparse_cross": 0,
+                                   "flash_attention": 0}
 
 
 def test_bf16_card_request_raises(monkeypatch):
@@ -96,7 +104,8 @@ def test_bf16_card_request_raises(monkeypatch):
             torch.zeros(4, dtype=torch.int32),
             torch.tensor([0, 4], dtype=torch.int32), X)
     assert ops.launch_counts() == {"kernel_block": 0, "rls_scores": 0,
-                                   "sparse_cross": 0}
+                                   "sparse_cross": 0,
+                                   "flash_attention": 0}
 
 
 def test_wrappers_refuse_cpu_tensors_and_dispatch_refuses_other_devices():
@@ -109,6 +118,12 @@ def test_wrappers_refuse_cpu_tensors_and_dispatch_refuses_other_devices():
         sparse_block.sparse_cross(torch.zeros(4),
                                   torch.zeros(4, dtype=torch.int32),
                                   torch.tensor([0, 4], dtype=torch.int32), X)
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q, q, q)
     meta = torch.empty(4, 3, device="meta")
     with pytest.raises(ValueError, match="no kernel route"):
         ops.rbf_block(meta, meta)
+    meta = torch.empty(1, 2, 8, 32, device="meta")
+    with pytest.raises(ValueError, match="no kernel route"):
+        ops.attention(meta, meta, meta)

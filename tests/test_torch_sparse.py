@@ -235,7 +235,8 @@ def test_chunked_fit_predict_matches_reference(reference_chunked_fit):
               **F64_TOL)
         close(model.predict(r["Xt"]), r["want"], **F64_TOL)
     assert kops.launch_counts() == {"kernel_block": 0, "rls_scores": 0,
-                                    "sparse_cross": 0}
+                                    "sparse_cross": 0,
+                                    "flash_attention": 0}
 
 
 def test_csr_fits_are_bit_identical_across_source_kinds():
