@@ -4,21 +4,44 @@
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/rls_scores.py::rls_scores_fused (body _rls_kernel).
 //
-// Bound on an H100 SXM: 2*n*p^2 operations against 4*(n*p + p*p + n) bytes
-// (float32). At the main path's shape (n = 463,715, p = 2048) that is
-// 3.89e12 operations, 58 ms at the 67 TFLOP/s float32 rate of the CUDA
-// cores, against 3.8 GB, 1.1 ms at 3.35 TB/s: bound by operations.
+// The Pallas kernel kept all of M in VMEM; at p = 2048 in float32 M is
+// 16 MB, far above the 227 KB of shared memory a block can use. So a block
+// owns a tile of rows of B and walks M in column blocks j; for each j it
+// forms T_j = B_rows * M[:, j] over k-slabs of B and M staged in shared
+// memory, then folds rowsum(T_j * B_rows[:, j]) into per-row partials. T is
+// never written to device memory, each block reduces over all j itself (no
+// atomics), and one score per row is written at the end. M is read as
+// given: it is not bit-symmetric, and no transpose stands in for it.
 //
-// Design against that bound: the Pallas kernel kept all of M in VMEM; at
-// p = 2048 in float32 M is 16 MB, far above the 227 KB of shared memory a
-// block can use. So each block owns a 128-row tile of B (64 in float64)
-// and walks M in 128-column blocks j; for each j it forms
-// T_j = B_rows * M[:, j] from 16-deep k-slabs of B and M staged in shared
-// memory, then folds rowsum(T_j * B_rows[:, j]) into per-thread row
-// partials. T is never written to device memory (one read of B per
-// column block, served mostly from L2; M stays in L2), each block reduces
-// over all j itself, so there is no cross-block reduction and no atomics,
-// and one score per row is written at the end.
+// float32 data and accumulation (the main path's build): 3xTF32 on the
+// tensor cores. Bound on an H100 SXM at the main path's shape (n = 463,715,
+// p = 2048): 2*n*p^2 = 3.89e12 operations done three times (a_hi*b_hi +
+// a_hi*b_lo + a_lo*b_hi) = 11.7e12 at 495 TFLOP/s TF32, 23.6 ms, against
+// 4*(n*p + p*p + n) = 3.8 GB, 1.1 ms at 3.35 TB/s: bound by operations (the
+// IEEE float32 bound of the same work is 58 ms at 67 TFLOP/s). Design: a
+// block of 8 warps owns 128 rows and walks M in 256-column blocks, so B is
+// read p / 256 = 8 times (8 * 3.8 GB = 30 GB, 9 ms at 3.35 TB/s, under the
+// products; M, 16 MB, stays in L2). Slabs of 32 k-values of B and M arrive
+// by 16-byte cp.async (4-byte where p is not a multiple of 4) into a ring
+// of three shared-memory stages, padded so that fragment loads hit 32
+// distinct banks. Each warp computes a 64 x 64 tile of T_j with
+// mma.sync.m16n8k8 TF32: every operand is split in registers when its
+// fragment is loaded into x_hi = tf32(x) (truncated) and x_lo = x - x_hi,
+// and the three products accumulate in float32, small terms first. A
+// product then errs by less than 3 * 2^-20 of |a b| (IEEE float32: 2^-24;
+// one TF32 product: 2^-10). Measured on an H100 (chip_smoke.py, phase
+// k2), the scores sit within 1.4e-5 (relative) of IEEE float32 at
+// p = 2048, growing about linearly with p: the tensor cores' float32
+// accumulation, not the split, sets that error. p <= 2048 is all that was
+// measured, and the largest p of any configuration or test; a larger p
+// must be measured against rtol 2e-4 before it is used. The fold
+// multiplies by the unsplit float32 B[r, j].
+//
+// float64, and the two mixed builds (float32 data with float64 accumulation
+// and the reverse): SIMT fma on the CUDA cores (tile.cuh), one block of 256
+// threads per 128-row tile (64 in float64) against 128-column blocks of M
+// (64 in float64) over 16-deep k-slabs. Bound in float64: the same 2*n*p^2
+// at 67 TFLOP/s.
 #include "tile.cuh"
 
 using namespace repro_tile;
@@ -98,10 +121,222 @@ int launch(const void* B, const void* M, void* out, int n, int p,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------ float32: 3xTF32 tensor cores
+
+namespace tf32x3 {
+
+constexpr int BM = 128, BN = 256, BK = 32, STAGES = 3;
+constexpr int WARPS_M = 2, WARPS_N = 4;       // 8 warps of WM x WN
+constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+constexpr int MT = WM / 16, NT8 = WN / 8;     // m16 and n8 tiles a warp
+constexpr int LDA = BK + 4;                   // 36: a-fragments conflict-free
+constexpr int LDB = BN + 8;                   // 264: b-fragments likewise
+constexpr int A_FLOATS = BM * LDA, B_FLOATS = BK * LDB;
+constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+constexpr int SMEM = STAGES * STAGE_FLOATS * (int)sizeof(float);
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? bytes : 0;       // 0 bytes read: zeros written
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+}
+
+// x = hi + lo exactly: hi is x with the 13 low mantissa bits cleared (a
+// TF32 value), lo = x - hi; the tensor cores read lo's top 19 bits. Two
+// instructions: rounding both parts (cvt.rna) made K2 slower at the main
+// path's shape on an H100 and changed no measured error
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Stage slab `it` (column block it / kt, k-slab it % kt) into `st`: rows
+// [row0, row0 + BM) x k [k0, k0 + BK) of B and rows k of M x columns
+// [j0, j0 + BN), zeros outside the matrices. VEC: 16-byte copies (p a
+// multiple of 4 and both operands 16-byte aligned), else 4-byte ones.
+template <bool VEC>
+__device__ __forceinline__ void load_slab(float* st,
+                                          const float* __restrict__ B,
+                                          const float* __restrict__ M,
+                                          int64_t row0, int n, int p, int it,
+                                          int kt) {
+  const int j0 = (it / kt) * BN, k0 = (it % kt) * BK;
+  float* As = st;
+  float* Bs = st + A_FLOATS;
+  constexpr int W = VEC ? 4 : 1;
+#pragma unroll
+  for (int e = threadIdx.x; e < BM * BK / W; e += THREADS) {
+    const int r = e / (BK / W), c = (e % (BK / W)) * W;
+    const int64_t gr = row0 + r;
+    const int gc = k0 + c;
+    const bool ok = gr < n && gc < p;
+    cp_async(As + r * LDA + c, ok ? B + gr * p + gc : B, ok, 4 * W);
+  }
+#pragma unroll
+  for (int e = threadIdx.x; e < BK * BN / W; e += THREADS) {
+    const int k = e / (BN / W), j = (e % (BN / W)) * W;
+    const int gk = k0 + k, gj = j0 + j;
+    const bool ok = gk < p && gj < p;
+    cp_async(Bs + k * LDB + j, ok ? M + (int64_t)gk * p + gj : M, ok, 4 * W);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
+                  float* __restrict__ out, int n, int p) {
+  extern __shared__ __align__(16) float sm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int64_t row0 = (int64_t)blockIdx.x * BM;
+  const int kt = (p + BK - 1) / BK, nj = (p + BN - 1) / BN;
+  const int slabs = kt * nj;
+
+  float part[MT][2];                  // rows g and g + 8 of each m16 tile
+  float acc[MT][NT8][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    part[mi][0] = part[mi][1] = 0.f;
+#pragma unroll
+    for (int ni = 0; ni < NT8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  }
+
+  // one commit group per slab, empty past the last, so that
+  // wait_group(STAGES - 2) always means "slab it has landed"
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < slabs)
+      load_slab<VEC>(sm + s * STAGE_FLOATS, B, M, row0, n, p, s, kt);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+
+  for (int it = 0; it < slabs; ++it) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();                  // slab it visible; slot it-1 free
+    const int next = it + STAGES - 1;
+    if (next < slabs)
+      load_slab<VEC>(sm + (next % STAGES) * STAGE_FLOATS, B, M, row0, n, p,
+                     next, kt);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+
+    const float* As = sm + (it % STAGES) * STAGE_FLOATS + wm * WM * LDA;
+    const float* Bs = sm + (it % STAGES) * STAGE_FLOATS + A_FLOATS + wn * WN;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t bh[NT8][2], bl[NT8][2];
+#pragma unroll
+      for (int ni = 0; ni < NT8; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          split(Bs[(kk + t + 4 * h) * LDB + ni * 8 + g], bh[ni][h],
+                bl[ni][h]);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        uint32_t ah[4], al[4];
+        const float* a = As + (mi * 16 + g) * LDA + kk + t;
+        split(a[0], ah[0], al[0]);
+        split(a[8 * LDA], ah[1], al[1]);
+        split(a[4], ah[2], al[2]);
+        split(a[8 * LDA + 4], ah[3], al[3]);
+        // small terms first; each pass over the 8 n-tiles is independent
+#pragma unroll
+        for (int ni = 0; ni < NT8; ++ni) mma(acc[mi][ni], al, bh[ni]);
+#pragma unroll
+        for (int ni = 0; ni < NT8; ++ni) mma(acc[mi][ni], ah, bl[ni]);
+#pragma unroll
+        for (int ni = 0; ni < NT8; ++ni) mma(acc[mi][ni], ah, bh[ni]);
+      }
+    }
+
+    if (it % kt == kt - 1) {
+      // column block done: fold T_j * B[rows, j-block] into the row
+      // partials with the unsplit B, and start the next block from zero
+      const int jw = (it / kt) * BN + wn * WN;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int64_t r = row0 + wm * WM + mi * 16 + g + 8 * h;
+#pragma unroll
+          for (int ni = 0; ni < NT8; ++ni)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = jw + ni * 8 + 2 * t + e;
+              if (r < n && j < p)
+                part[mi][h] =
+                    fmaf(acc[mi][ni][2 * h + e], __ldg(B + r * p + j),
+                         part[mi][h]);
+              acc[mi][ni][2 * h + e] = 0.f;
+            }
+        }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();                    // the stages are free for the sums
+
+  // a row's partials: 4 threads of a quad, then the 4 warps across j
+  float* red = sm;                    // [WARPS_N][BM]
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = part[mi][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (t == 0) red[wn * BM + wm * WM + mi * 16 + g + 8 * h] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < BM && row0 + threadIdx.x < n) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS_N; ++w) v += red[w * BM + threadIdx.x];
+    out[row0 + threadIdx.x] = v;
+  }
+}
+
+int launch(const float* B, const float* M, float* out, int n, int p,
+           cudaStream_t stream) {
+  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(M) % 16 == 0;
+  auto kernel = vec ? rls_scores_tf32x3<true> : rls_scores_tf32x3<false>;
+  cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (set != cudaSuccess) return (int)set;
+  const int64_t row_tiles = (n + BM - 1) / BM;
+  kernel<<<(unsigned)row_tiles, THREADS, SMEM, stream>>>(B, M, out, n, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32x3
+
 }  // namespace
 
 // dtype (of B and the scores) / acc (of M and the arithmetic):
-// 0 = float32, 1 = float64. Returns cudaGetLastError() after the launch.
+// 0 = float32, 1 = float64; (float32, float32) runs on the tensor cores
+// (3xTF32), the others in SIMT fma. Returns cudaGetLastError() after the
+// launch.
 extern "C" int rls_scores_launch(const void* B, const void* M, void* out,
                                  int n, int p, int dtype, int acc, int device,
                                  void* stream) {
@@ -109,7 +344,10 @@ extern "C" int rls_scores_launch(const void* B, const void* M, void* out,
   if (set != cudaSuccess) return (int)set;
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && acc == 0) return launch<float, float>(B, M, out, n, p, s);
+  if (dtype == 0 && acc == 0)
+    return tf32x3::launch(static_cast<const float*>(B),
+                          static_cast<const float*>(M),
+                          static_cast<float*>(out), n, p, s);
   if (dtype == 0 && acc == 1) return launch<float, double>(B, M, out, n, p, s);
   if (dtype == 1 && acc == 0) return launch<double, float>(B, M, out, n, p, s);
   if (dtype == 1 && acc == 1)

@@ -8,10 +8,17 @@ normaliser and accumulator in float32, fully masked key tiles skipped, and
 the output in q's dtype. Query head h reads KV head h // (Hq / Hkv) through
 the kernel's own indexing; K and V are never broadcast in device memory.
 
+bfloat16 operands run on the tensor cores (``wgmma``, K/V tiles brought in
+by TMA): both products take bf16 operands with float32 sums, and the
+softmax weights P are rounded to bf16 for P·V, so an output o_id moves
+from the plain version by at most 2⁻⁸·Σ_j p_ij|v_jd|/l_i beyond one bf16
+rounding. float32 operands run the SIMT kernel in IEEE float32.
+
 The shape contract is the Pallas wrapper's: a query block of
 ``min(256, S)`` rows, so S ≤ 256 is any length and a longer S must be a
 multiple of 256 (``attention_shapes`` raises otherwise, on either route).
-float32 and bfloat16 operands, head dims 32, 64 and 128.
+float32 and bfloat16 operands, head dims 32, 64 and 128; bf16 operands
+16-byte aligned (TMA reads them).
 
 No gradient: the reference's backward recomputes through its plain
 version, and training is ROADMAP item 12.2 — operands that require grad
@@ -29,7 +36,10 @@ from torch import Tensor
 BLOCK = 256                      # the Pallas wrapper's bq = bk default
 HEAD_DIMS = (32, 64, 128)        # the kernel's template instances
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_GRID_Y_MAX = 65_535             # B·Hq rides on gridDim.y
+BF16_ROWS = 192                  # query rows per block of the bf16 instance
+# gridDim.y carries B·Hq in the float32 instance and the query tiles in the
+# bf16 one (whose B·Hq rides on gridDim.x)
+_GRID_Y_MAX = 65_535
 
 
 def attention_shapes(q: Tensor, k: Tensor,
@@ -95,9 +105,16 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                            "training through K4 is ROADMAP item 12.2")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
-    if B * Hq > _GRID_Y_MAX:
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention reads bf16 operands with TMA and "
+                         "needs them 16-byte aligned")
+    if q.dtype == torch.float32:
+        grid_y, what = B * Hq, "(batch, head) pairs"
+    else:
+        grid_y, what = -(-S // BF16_ROWS), f"query tiles of {BF16_ROWS} rows"
+    if grid_y > _GRID_Y_MAX:
         raise ValueError(f"flash_attention takes at most {_GRID_Y_MAX} "
-                         f"(batch, head) pairs, got {B * Hq}")
+                         f"{what}, got {grid_y}")
     if int(window) < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     out = torch.empty_like(q)

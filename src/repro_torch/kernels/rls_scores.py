@@ -5,10 +5,15 @@ The Hopper counterpart of the Pallas kernel
 inverse M = (BᵀB + nλI)^{-1}, one launch reads B once per column block of
 M and writes one score per row; B·M is never written to device memory.
 
-Accumulation follows the reference's rule (f64 in ⇒ f64, else IEEE f32;
+Accumulation follows the reference's rule (f64 in ⇒ f64, else f32;
 ``acc_dtype`` overrides); M is read in the accumulation dtype, as the
-Pallas body casts it, and the scores come back in B's dtype. bf16 is a
-ROADMAP item and raises here.
+Pallas body casts it, and the scores come back in B's dtype. float32 data
+with float32 accumulation runs on the tensor cores as 3xTF32 (each operand
+split into a TF32 high part and the rest, three products summed in
+float32: within about 1.4e-5 of IEEE float32 at p = 2048 on an H100,
+growing about linearly with p; measured for p ≤ 2048 only, the largest p of
+any configuration or test); float64 and the mixed builds run IEEE fma on
+the CUDA cores. bf16 is a ROADMAP item and raises here.
 
 This wrapper takes CUDA tensors only; ``repro_torch.kernels.ops`` sends
 CPU tensors to the plain version in ``ref``.

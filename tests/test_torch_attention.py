@@ -11,7 +11,10 @@ mask) at S ∈ {32, 96, 256, 512} and D ∈ {32, 64, 128}, which is cheap:
 that ``attention_ref`` is itself held against the JAX ``ref.attention_ref``
 here. The chunked online softmax (the port's ``flash_attention_chunked``)
 and the softcapped branch are held against their JAX counterparts.
-Inputs are made with numpy from a seed.
+K4's bf16 instance on the card computes in other arithmetic than its plain
+version (tensor cores, softmax weights rounded to bf16 for P·V): a plain
+emulation of that arithmetic is held against the Pallas kernel at bf16
+under the card's tolerance. Inputs are made with numpy from a seed.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +32,11 @@ F32_TOL = dict(rtol=0, atol=2e-5)     # tests/test_kernels_pallas.py
 # bfloat16 outputs of the same float32 arithmetic differ by at most one
 # rounding of the output: one bf16 spacing, at most 2^-7 of the value
 BF16_TOL = dict(rtol=2.0 ** -7, atol=2e-5)
+# rounding each softmax weight p_ij to bf16 (unit roundoff 2^-8) moves an
+# output o_id by at most 2^-8·Σ_j p_ij|v_jd|/l_i more, the plain version on
+# (q, k, |v|): K4's bf16 tolerance on the card (chip_smoke.py,
+# tests/test_torch_cuda_attention.py)
+P_ROUND = 2.0 ** -8
 GQA = [(8, 8), (8, 2), (4, 1)]
 MASKS = [(True, 0), (False, 0), (True, 64)]
 
@@ -52,13 +60,70 @@ def test_plain_k4_matches_pallas_interpret(hq, hkv, causal, window):
     close(got, want, **F32_TOL)
 
 
-def test_plain_k4_matches_pallas_interpret_bf16():
-    q, k, v = _qkv(1, 4, 2, 128, 64, seed=7)
-    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
-    want = jax_ops.attention(jq, jk, jv, causal=True)
-    got = ops.attention(*(t(a).bfloat16() for a in (q, k, v)), causal=True)
+# bf16 cells (hq, hkv, S, D, causal, window, seed): the first is the cell of
+# test_plain_k4_matches_pallas_interpret_bf16
+BF16_CELLS = {"causal": (4, 2, 128, 64, True, 0, 7),
+              "gqa-window": (4, 1, 256, 32, True, 64, 13)}
+
+
+@pytest.fixture(scope="module")
+def pallas_bf16():
+    """Each bf16 cell through the Pallas kernel in interpret mode, once:
+    name -> (q, k, v as bf16 tensors, the kernel's output in float32)."""
+    out = {}
+    for name, (hq, hkv, s, d, causal, window, seed) in BF16_CELLS.items():
+        arrays = [jnp.asarray(a, jnp.bfloat16)
+                  for a in _qkv(1, hq, hkv, s, d, seed=seed)]
+        want = jax_ops.attention(*arrays, causal=causal, window=window)
+        out[name] = (tuple(t(np.asarray(a, np.float32)).bfloat16()
+                           for a in arrays), np.asarray(want, np.float32))
+    return out
+
+
+def test_plain_k4_matches_pallas_interpret_bf16(pallas_bf16):
+    (q, k, v), want = pallas_bf16["causal"]
+    got = ops.attention(q, k, v, causal=True)
     assert got.dtype == torch.bfloat16
-    close(got.float(), np.asarray(want, np.float32), **BF16_TOL)
+    close(got.float(), want, **BF16_TOL)
+
+
+def k4_tensor_core_emulation(q, k, v, *, causal=True, window=0, scale=0.0):
+    """What K4's bf16 instance computes, in plain torch: q·kᵀ from the bf16
+    values (each product exact in float32) summed in float32, the scale
+    applied after the product, softmax weights P in float32, l summed from
+    them, P rounded to bf16 for P·V (float32 sums), the output cast to bf16.
+    Exact softmax over all keys; the kernel's online softmax is the same
+    function up to the order of its sums."""
+    B, Hq, S, D = q.shape
+    g = Hq // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    logits = (q.float() @ kf.transpose(-1, -2)) * (scale or D ** -0.5)
+    pos = torch.arange(S)
+    logits = logits.masked_fill(~ref.attention_mask(pos, pos, causal, window),
+                                float("-inf"))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    return ((p.bfloat16().float() @ vf) / l.clamp_min(1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("cell", list(BF16_CELLS))
+def test_k4_tensor_core_arithmetic_matches_pallas_interpret(pallas_bf16,
+                                                            cell):
+    """The redesign stays within the card's bf16 tolerance of the TPU
+    kernel's function: element by element, atol 2e-5 +
+    2^-8·plain(q, k, |v|), rtol 2^-7."""
+    (q, k, v), want = pallas_bf16[cell]
+    _, _, _, _, causal, window, _ = BF16_CELLS[cell]
+    got = k4_tensor_core_emulation(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    want = torch.as_tensor(want)
+    moved = ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                    causal=causal, window=window)
+    tol = (BF16_TOL["atol"] + P_ROUND * moved
+           + BF16_TOL["rtol"] * want.abs())
+    share = float(((got.float() - want).abs() / tol).max())
+    assert share <= 1, f"{share:.3f} of the tolerance"
 
 
 @pytest.mark.parametrize("hq,hkv", GQA)

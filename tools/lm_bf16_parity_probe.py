@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """How far the LM's two exact attention routes move bf16 logits, on the CPU.
 
-    PYTHONPATH=src python tools/lm_bf16_parity_probe.py
+    PYTHONPATH=src python tools/lm_bf16_parity_probe.py [--k4 tensor-core]
 
 A cut of the ``chip_smoke.py`` LM cell (phi4-mini-3.8b's architecture at 8
 layers, d_model 768, 6 query / 2 KV heads of 128, d_ff 2,048, vocabulary
@@ -13,10 +13,19 @@ positions whose arg-max agrees; then 64 ``decode_step`` calls against the
 forward's last logits. Both routes compute attention in float32 and round
 its output to bf16, so this measures how the flipped roundings travel
 through bf16 layers. It set the tolerances of ``chip_smoke.py``'s LM parity
-checks before the first full-size run. A statement about arithmetic, not a
-timing: nothing here runs on a GPU.
+checks before the first full-size run.
+
+``--k4 tensor-core`` puts, in place of K4's plain version, the plain
+emulation of what K4's bf16 instance computes on the card (bf16 products
+summed in float32, softmax weights rounded to bf16 for P·V;
+``k4_tensor_core_emulation`` in tests/test_torch_attention.py, which needs
+JAX importable): the prediction of the card's prefill parity. A statement
+about arithmetic, not a timing: nothing here runs on a GPU.
 """
+import argparse
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -27,6 +36,15 @@ from repro_torch.models import decode_step, forward, init_decode_state, \
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--k4", choices=("plain", "tensor-core"),
+                        default="plain", help="K4's arithmetic on the "
+                        "use_pallas route (default: its plain version)")
+    if parser.parse_args().k4 == "tensor-core":
+        from repro_torch.kernels import ref
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tests"))
+        from test_torch_attention import k4_tensor_core_emulation
+        ref.flash_attention_ref = k4_tensor_core_emulation
     torch.set_num_threads(4)
     cfg = dataclasses.replace(
         get_config("phi4-mini-3.8b"), n_layers=8, d_model=768, n_heads=6,
