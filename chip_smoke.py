@@ -10,15 +10,21 @@ exits non-zero on any failure:
                with nvcc for sm_90a, one process per source, all at once;
                print the card's name and power limit.
   2. k1        K1 ``kernel_block`` against its plain PyTorch version, rbf /
-               linear / poly x {f32, f64} at ragged shapes, and the two
-               mixed data/accumulation dtype builds.
+               linear / poly x {f32 (SIMT), f64 (FP64 tensor cores)} at
+               ragged shapes, the two mixed data/accumulation dtype builds,
+               a predict batch (256, 2048, 90) and the sparse path's W =
+               k(Z, Z) over 2048 densified landmark rows (d = 47,236, f32
+               data, f64 accumulation).
   3. k2        K2 ``rls_scores`` against its plain version, {f32, f64} x
-               p in {37, 600, 2048}, and the two mixed builds (float32:
-               3xTF32 on the tensor cores; the others SIMT fma).
+               p in {37, 600, 2048, 4096, 8192}, and the two mixed builds
+               (float32: 3xTF32 on the tensor cores; the others SIMT fma).
   4. k3        K3 ``sparse_cross`` against its plain version, rbf / linear /
                poly x {f32, f64} and the two mixed builds at a ragged CSR
-               shape (empty rows, padding slots past indptr[-1]), at
-               (8, 8, 1), and at one full chunk of the sparse cell.
+               shape (empty rows, padding slots past indptr[-1]) against
+               dense N(0, 1/50) landmarks and against landmarks that are
+               densified CSR rows, at (8, 8, 1), and at one full chunk of
+               the sparse cell against its landmark rows; each cell logs
+               its hot/other split.
   5. k4        K4 ``flash_attention`` against its plain version, float32
                (SIMT) and bfloat16 (wgmma, TMA) x (hq, hkv) in {(8,8),
                (8,2), (4,1)} x {causal, non-causal, causal + window 64} x
@@ -58,7 +64,11 @@ exits non-zero on any failure:
 
 ``--phases`` runs a subset (``build,k3,sparse`` is the short call for the
 sparse path, ``build,k4,lm,summary`` for the LM, ``build,k2,k4,summary``
-for the kernel checks and K2 / K4 rows alone); the default runs all ten.
+for the kernel checks and K2 / K4 rows alone, ``build,k1,k3,summary`` for
+K1's and K3's checks and rows); the default runs all ten. ``limits``, run
+only when named (``build,limits``), measures K2's 3xTF32 error at p = 2048,
+4096 and 8192 below the wrapper (which refuses p > 2048 in that build) and
+K1's float32 linear kind against ``torch.matmul`` at d = 16 and 256.
 Results are also written to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -73,6 +83,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "k1", "k2", "k3", "k4", "main", "parity", "sparse",
           "lm", "summary")
+# run only when named: the measurements behind two limits that PERF.md
+# states, K2's TF32X3_MAX_P and K1's float32 product rate
+OPT_IN = ("limits",)
 
 # H100 SXM data sheet, the card's peak rate for each type: float32 on the
 # CUDA cores (IEEE, no tensor cores), float64 on the FP64 tensor cores (the
@@ -106,7 +119,10 @@ SPARSE_PRECISION = dict(data_dtype="f32", accum_dtype="f64", solve_dtype="f64")
 PARITY_CHUNK = 8192
 
 K1_TOL = {"float32": 2e-5, "float64": 1e-12}      # atol on blocks
+# K1 at a predict batch of the main path (predict_batched(256))
+PREDICT_BATCH = 256
 K2_RTOL = {"float32": 2e-4, "float64": 1e-12}     # elementwise rtol on scores
+K2_PS = (37, 600, 2048, 4096, 8192)
 # (data, accumulation) dtypes of the mixed builds, reached through acc_dtype
 # when Precision.accum_dtype differs from the data dtype
 MIXED = (("float32", "float64"), ("float64", "float32"))
@@ -251,7 +267,7 @@ def _sass_counts(lib: Path) -> dict:
             for op in ("HGMMA", "HMMA")}
 
 
-def phase_k1(res: dict) -> None:
+def phase_k1(res: dict, keep: dict) -> None:
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rbf_block import kernel_block
@@ -313,7 +329,39 @@ def phase_k1(res: dict) -> None:
                   f"k1 {kind} {name} returned {got.dtype} {got.shape}")
             check(err <= tol, f"k1 {kind} {name}: max|Δ| {err:.3e} > {tol:g}")
             worst[f"{kind}.{name}"] = err
+    # a predict batch of the main path: 64 x 64 tiles fill the card
+    n, p, d = PREDICT_BATCH, P, DIM
+    X = torch.randn(n, d, generator=g, device="cuda") / d ** 0.5
+    Z = torch.randn(p, d, generator=g, device="cuda") / d ** 0.5
+    got = kernel_block(X, Z, kind="rbf", bandwidth=BANDWIDTH)
+    err = float((got - ref.rbf_block_ref(X, Z, BANDWIDTH)).abs().max())
+    log(f"[k1] rbf    float32 predict batch (n,p,d)=({n},{p},{d}) "
+        f"max|Δ|={err:.3e} (atol {K1_TOL['float32']:g})")
+    check(err <= K1_TOL["float32"], f"k1 predict batch: max|Δ| {err:.3e}")
+    worst["predict_batch"] = err
+    # the sparse path's W = k(Z, Z): densified landmark rows, float32 data
+    # accumulated in float64 on the FP64 tensor cores, against the plain
+    # version in float64
+    _, Z = _full_chunk(keep)
+    Z64 = Z.double()
+    for kind, params, want in (
+            ("rbf", dict(bandwidth=RCV1_BANDWIDTH),
+             ref.rbf_block_ref(Z64, Z64, RCV1_BANDWIDTH)),
+            ("linear", {}, ref.linear_block_ref(Z64, Z64))):
+        got = kernel_block(Z, Z, kind=kind, acc_dtype=torch.float64,
+                           **params)
+        torch.cuda.synchronize()
+        err = float((got - want.float()).abs().max())
+        log(f"[k1] {kind:6s} data/acc float32/float64 W shape (n,p,d)="
+            f"({Z.shape[0]},{Z.shape[0]},{Z.shape[1]}), landmark rows "
+            f"{100 * float((Z != 0).float().mean()):.3f} % non-zero: "
+            f"max|Δ|={err:.3e} (atol {K1_TOL['float32']:g})")
+        check(got.dtype == torch.float32, f"k1 W returned {got.dtype}")
+        check(err <= K1_TOL["float32"], f"k1 W {kind}: max|Δ| {err:.3e}")
+        worst[f"W.{kind}"] = err
+    del want, got, Z64
     res["k1_check_max_abs_err"] = worst
+    keep["k1"] = True
 
 
 def _scores_problem(n: int, p: int, dtype, g):
@@ -328,27 +376,49 @@ def _scores_problem(n: int, p: int, dtype, g):
 def phase_k2(res: dict, keep: dict) -> None:
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rls_scores import rls_scores_fused
+    from repro_torch.kernels.rls_scores import TF32X3_MAX_P, rls_scores_fused
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
-    # p = 2048 is the largest p of any configuration or test: the 3xTF32
-    # build's error grows with p and is measured up to there
-    for p in (37, 600, 2048):
+    # the 3xTF32 build's error grows with p (measured up to p = 8192:
+    # PERF.md), so the wrapper refuses p > TF32X3_MAX_P (2048) in it; past
+    # that the float32 cells check the refusal and the float32-data,
+    # float64-accumulating build that it names
+    for p in K2_PS:
         for dtype in (torch.float32, torch.float64):
             n = 5003
             B, M = _scores_problem(n, p, dtype, g)
+            name = str(dtype).removeprefix("torch.")
+            tol = K2_RTOL[name]
+            if dtype == torch.float32 and p > TF32X3_MAX_P:
+                try:
+                    rls_scores_fused(B, M)
+                except ValueError as exc:
+                    check('acc_dtype="float64"' in str(exc),
+                          f"k2 refusal at p={p} does not name float64: {exc}")
+                else:
+                    check(False, f"k2 float32 build ran at p={p} > "
+                          f"{TF32X3_MAX_P}")
+                got = rls_scores_fused(B, M, acc_dtype=torch.float64)
+                want = ref.rls_scores_ref(B.double(), M).float()
+                rel = float(((got - want).abs() / want.abs()).max())
+                log(f"[k2] float32 (n,p)=({n},{p}) refused; data/acc "
+                    f"float32/float64 max rel Δ={rel:.3e} (rtol {tol:g})")
+                check(rel <= tol, f"k2 float32/float64 p={p}: {rel:.3e}")
+                res.setdefault("k2_rel_err_by_p", {})[
+                    f"float32/float64.p{p}"] = rel
+                continue
             got = rls_scores_fused(B, M)
             want = ref.rls_scores_ref(B, M.to(dtype))
             torch.cuda.synchronize()
-            name = str(dtype).removeprefix("torch.")
             rel = float(((got - want).abs() / want.abs()).max())
-            tol = K2_RTOL[name]
             log(f"[k2] {name} (n,p)=({n},{p}) max rel Δ={rel:.3e} "
-                f"(rtol {tol:g}), scores in [{float(want.min()):.3g}, "
+                f"(rtol {tol:g}, {tol / max(rel, 1e-300):.1f}x inside), "
+                f"scores in [{float(want.min()):.3g}, "
                 f"{float(want.max()):.3g}]")
             check(got.dtype == dtype and got.shape == (n,),
                   f"k2 {name} returned {got.dtype} {got.shape}")
             check(rel <= tol, f"k2 {name} p={p}: max rel Δ {rel:.3e} > {tol:g}")
+            res.setdefault("k2_rel_err_by_p", {})[f"{name}.p{p}"] = rel
             worst[name] = max(worst.get(name, 0.0), rel)
     # the mixed builds, against the plain version under the same accumulation
     n, p = 5003, 600
@@ -454,14 +524,17 @@ def phase_k3(res: dict, keep: dict) -> None:
     import numpy as np
     import torch
     from repro_torch.data import CsrMatrix
-    from repro_torch.kernels.sparse_block import sparse_cross
+    from repro_torch.kernels.sparse_block import (prepare_landmarks,
+                                                  sparse_cross)
     g = np.random.default_rng(3)
     worst = {}
 
     def run(label, X, Z, dtype, acc, h, tol):
+        prep = prepare_landmarks(Z, acc)
+        log(f"[k3] {label}: {_k3_split(X, prep)}")
         for kind, kw, want in _k3_cases(X, Z, acc, h):
             got = sparse_cross(X.data, X.indices, X.indptr, Z, kind=kind,
-                               acc_dtype=acc, **kw)
+                               acc_dtype=acc, prepared=prep, **kw)
             torch.cuda.synchronize()
             err = float((got - want.to(dtype)).abs().max())
             name = str(dtype).removeprefix("torch.")
@@ -492,6 +565,11 @@ def phase_k3(res: dict, keep: dict) -> None:
                              device="cuda")
         run("(8,8,1)", Xs, Zs, dtype, dtype, 1.0,
             K3_TOL[str(dtype).removeprefix("torch.")])
+        # landmarks as the sparse path makes them: densified CSR rows
+        # (about 1 % non-zero, every 17th row empty); |z|^2 ≈ 1
+        Zl = _ragged_csr(g, dtype).todense()[:257].contiguous()
+        run("(1031,257,5000) ragged, landmark rows", X, Zl, dtype, dtype,
+            1.0, K3_TOL[str(dtype).removeprefix("torch.")])
     for dt_name, acc_name in MIXED:
         dtype, acc = getattr(torch, dt_name), getattr(torch, acc_name)
         X = _ragged_csr(g, dtype)
@@ -499,11 +577,39 @@ def phase_k3(res: dict, keep: dict) -> None:
                             dtype=dtype, device="cuda")
         run("(1031,257,5000) ragged", X, Z, dtype, acc, 8.0,
             K3_TOL["float32"])
+        Zl = _ragged_csr(g, dtype).todense()[:257].contiguous()
+        run("(1031,257,5000) ragged, landmark rows", X, Zl, dtype, acc, 1.0,
+            K3_TOL["float32"])
     X, Z = _full_chunk(keep)
-    run(f"full chunk (rows,p,d)=({X.shape[0]},{Z.shape[0]},{RCV1_DIM}), "
-        f"{int(X.indptr[-1])} values", X, Z, torch.float32, torch.float32,
-        RCV1_BANDWIDTH, K3_TOL["float32"])
+    for acc in (torch.float32, torch.float64):
+        run(f"full chunk (rows,p,d)=({X.shape[0]},{Z.shape[0]},{RCV1_DIM}), "
+            f"{int(X.indptr[-1])} values, landmark rows", X, Z,
+            torch.float32, acc, RCV1_BANDWIDTH, K3_TOL["float32"])
     res["k3_check_max_abs_err"] = worst
+
+
+def _k3_work(X, Z) -> tuple[int, int]:
+    """(Σ_c nnz_X(c)·nnz_Z(c), nnz): the multiply-adds of X·Zᵀ that meet a
+    non-zero of Z, against the dense count nnz·p."""
+    import torch
+    nnz = int(X.indptr[-1])
+    cols = torch.bincount(X.indices[:nnz].long(), minlength=Z.shape[1])
+    return int((cols * (Z != 0).sum(0)).sum()), nnz
+
+
+def _k3_split(X, prep) -> str:
+    """K3's path for this X and prepared Z, in one line: the hot/other
+    split of Z's columns and the share of the work each carries."""
+    import torch
+    nnz = int(X.indptr[-1])
+    hot = (prep.hot_slot.long()[X.indices[:nnz].long()] >= 0)
+    work, _ = _k3_work(X, prep.Z)
+    p = prep.Z.shape[0]
+    return (f"hot/other split: {prep.hot.shape[0]} hot columns (dense "
+            f"table) hold {100 * float(hot.float().mean()):.1f} % of X's "
+            f"values; {prep.ent_j.shape[0]} list entries for the other "
+            f"columns; work meeting a non-zero of Z "
+            f"{100 * work / max(nnz * p, 1):.2f} % of nnz·p")
 
 
 def _k4_check(q, k, v, causal: bool, window: int) -> tuple[float, float]:
@@ -1072,39 +1178,149 @@ def _launches(res: dict, phase: str, kernel: str) -> int | None:
     return res[phase]["launches"].get(kernel, 0)
 
 
-def _summary_k1(res: dict, keep: dict) -> dict:
-    """K1's row, at the main path's shape against its fitted landmarks."""
+def _k1_row(shape: str, launches, err, ms, plain, bound, by, lib,
+            **extra) -> dict:
+    return dict(name="kernel_block", shape=shape, route="cuda",
+                source="src/repro_torch/kernels/csrc/kernel_block.cu",
+                replaces="src/repro/kernels/rbf_block.py:84",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib, **extra)
+
+
+def _k1_bound(n: int, p: int, d: int, dtype: str,
+              itemsize: int = 4) -> tuple[float, str]:
+    """K1's dense bound: the cross term, the norms and the epilogue, against
+    each input read once and the output written once."""
+    ops = 2 * n * p * d + 2 * (n + p) * d + 5 * n * p
+    return _bound_ms(ops, itemsize * (n * d + p * d + n * p), dtype)
+
+
+def _k1_w_bound(Z) -> tuple[float, str, float, float]:
+    """The bound of W = k(Z, Z) over the work this Z needs: 2·Σ_c nnz_Z(c)²
+    products (a zero of Z adds nothing), the norms over Z's non-zeros and
+    the epilogue, against Z read twice and W written once, as K3's bound
+    counts Σ_c nnz_X(c)·nnz_Z(c). Also returned, as shares of the dense
+    2·p²·d: that work, and the operations that the FP64 tensor-core build
+    runs, a warp's step of 2·32·32·8 (8 m16n8k8 products) for each pair of
+    32-row blocks of Z that both hold a non-zero in the same 8-column
+    block (the warps skip the other steps, which add exact zeros)."""
+    import torch
+    p, d = Z.shape
+    nz = Z != 0
+    counts = nz.sum(0).double()
+    work = 2 * float((counts * counts).sum())
+    ops = work + 2 * 2 * float(counts.sum()) + 5 * p * p
+    bound, by = _bound_ms(ops, Z.element_size() * (2 * p * d + p * p),
+                          "float64")
+    k8 = -(-d // 8)
+    pad = torch.zeros((-(-p // 32) * 32, k8 * 8), dtype=torch.bool,
+                      device=Z.device)
+    pad[:p, :d] = nz
+    live = pad.view(-1, 32, k8, 8).any(dim=3).any(dim=1).sum(0)
+    mma = float(2 * 32 * 32 * 8 * int((live * live).sum()))
+    dense = 2 * p * p * d
+    return bound, by, work / dense, mma / dense
+
+
+def _summary_k1(res: dict, keep: dict) -> list[dict]:
+    """K1's rows at the three shapes that matter: the main path's fit
+    (rbf; the linear kind beside torch.matmul(X, Z.T)), one predict batch
+    of 256 rows, and the sparse path's W = k(Z, Z) over densified landmark
+    rows (f32 data, f64 accumulation) beside torch.matmul on float64
+    copies."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rbf_block import kernel_block
-    X = torch.as_tensor(keep["Xtr"], device="cuda")
-    Z = keep["Z"].contiguous()
+    if "Xtr" in keep:
+        X = torch.as_tensor(keep["Xtr"], device="cuda")
+        Z = keep["Z"].contiguous()
+    else:       # the MSD-shaped rows, and landmarks drawn uniformly
+        X = torch.as_tensor(_msd_data()[0], device="cuda")
+        Z = X[torch.randperm(N_TRAIN, generator=torch.Generator()
+                             .manual_seed(6))[:P].cuda()].contiguous()
     n, d = X.shape
     p = Z.shape[0]
-
-    # K1 at the main path's shape: the score pass's and the solver's columns
+    fit_launches = predict_launches = None
+    if "main" in res:
+        fit_launches = res["main"]["fit_launches"]["kernel_block"]
+        predict_launches = (res["main"]["launches"]["kernel_block"]
+                            - fit_launches)
+    rows = []
+    # the fit's shape: the score pass's and the solver's columns
     C = kernel_block(X, Z, kind="rbf", bandwidth=BANDWIDTH)
     err1 = float((C - ref.rbf_block_ref(X, Z, BANDWIDTH)).abs().max())
+    del C
     ms1 = cuda_ms(lambda: kernel_block(X, Z, kind="rbf",
                                        bandwidth=BANDWIDTH), reps=10)
     plain1 = cuda_ms(lambda: ref.rbf_block_ref(X, Z, BANDWIDTH), reps=10)
-    b1, by1 = _bound_ms(2 * n * p * d + 2 * (n + p) * d + 5 * n * p,
-                        4 * (n * d + p * d + n * p), "float32")
+    b1, by1 = _k1_bound(n, p, d, "float32")
     lin_ms = cuda_ms(lambda: kernel_block(X, Z, kind="linear"), reps=10)
     mm_ms = cuda_ms(lambda: torch.matmul(X, Z.T), reps=10)
-    log(f"[summary] K1 rbf (n,p,d)=({n},{p},{d}) f32: kernel {ms1:.3f} ms, "
-        f"plain {plain1:.3f} ms, bound {b1:.3f} ms ({by1}), max|Δ| "
-        f"{err1:.3e}")
+    log(f"[summary] K1 rbf (n,p,d)=({n},{p},{d}) f32 (SIMT): kernel "
+        f"{ms1:.3f} ms, plain {plain1:.3f} ms, bound {b1:.3f} ms ({by1}), "
+        f"max|Δ| {err1:.3e}, launches in the fit {fit_launches}")
     log(f"[summary] K1 linear same shape: kernel {lin_ms:.3f} ms, "
         f"torch.matmul(X, Z.T) {mm_ms:.3f} ms")
     check(err1 <= K1_TOL["float32"], f"K1 at main shape: {err1:.3e}")
     res["k1_linear_vs_matmul_ms"] = dict(kernel=lin_ms, matmul=mm_ms)
-    return dict(name="kernel_block", route="cuda",
-                source="src/repro_torch/kernels/csrc/kernel_block.cu",
-                replaces="src/repro/kernels/rbf_block.py:84",
-                launches=_launches(res, "main", "kernel_block"),
-                max_abs_err=err1, ms=ms1, plain_ms=plain1, bound_ms=b1,
-                bound_by=by1, library_ms=None)
+    rows.append(_k1_row("fit", fit_launches, err1, ms1, plain1, b1, by1,
+                        None, linear_ms=lin_ms, linear_library_ms=mm_ms,
+                        library_fn="torch.matmul(X, Z.T) against the "
+                                   "linear kind"))
+    # one predict batch
+    Xb = X[:PREDICT_BATCH]
+    nb = Xb.shape[0]
+    Cb = kernel_block(Xb, Z, kind="rbf", bandwidth=BANDWIDTH)
+    errb = float((Cb - ref.rbf_block_ref(Xb, Z, BANDWIDTH)).abs().max())
+    msb = cuda_ms(lambda: kernel_block(Xb, Z, kind="rbf",
+                                       bandwidth=BANDWIDTH), reps=100)
+    plainb = cuda_ms(lambda: ref.rbf_block_ref(Xb, Z, BANDWIDTH), reps=100)
+    bb, byb = _k1_bound(nb, p, d, "float32")
+    log(f"[summary] K1 rbf predict batch (n,p,d)=({nb},{p},{d}) f32: "
+        f"kernel {1e3 * msb:.1f} µs, plain {1e3 * plainb:.1f} µs, bound "
+        f"{1e3 * bb:.2f} µs ({byb}), max|Δ| {errb:.3e}, launches in "
+        f"predict_batched {predict_launches}")
+    check(errb <= K1_TOL["float32"], f"K1 predict batch: {errb:.3e}")
+    rows.append(_k1_row("predict", predict_launches, errb, msb, plainb, bb,
+                        byb, None))
+    # W = k(Z, Z) of the sparse path
+    _, Zs = _full_chunk(keep)
+    Zs = keep.get("sparse_Z", Zs).contiguous()
+    ps, ds = Zs.shape
+    acc = torch.float64
+    Z64 = Zs.double()
+    W = kernel_block(Zs, Zs, kind="rbf", bandwidth=RCV1_BANDWIDTH,
+                     acc_dtype=acc)
+    errw = float((W - ref.rbf_block_ref(Z64, Z64, RCV1_BANDWIDTH).float())
+                 .abs().max())
+    del W
+    msw = cuda_ms(lambda: kernel_block(Zs, Zs, kind="rbf",
+                                       bandwidth=RCV1_BANDWIDTH,
+                                       acc_dtype=acc), reps=10)
+    plainw = cuda_ms(lambda: ref.rbf_block_ref(
+        Zs.double(), Zs.double(), RCV1_BANDWIDTH).float(), reps=3)
+    libw = cuda_ms(lambda: torch.matmul(Z64, Z64.T), reps=10)
+    bw, byw = _k1_bound(ps, ps, ds, "float64")
+    bw_work, byw_work, work_share, mma_share = _k1_w_bound(Zs)
+    log(f"[summary] K1 rbf W (n,p,d)=({ps},{ps},{ds}) f32 data / f64 "
+        f"accumulation (FP64 tensor cores): kernel {msw:.3f} ms, plain "
+        f"{plainw:.3f} ms, torch.matmul on float64 copies {libw:.3f} ms, "
+        f"bound {bw:.3f} ms ({byw}, dense); bound of the work Z needs "
+        f"({100 * work_share:.2f} % of the dense products) {bw_work:.3f} ms "
+        f"({byw_work}); the warp steps that run are "
+        f"{100 * mma_share:.1f} % of the dense products; max|Δ| "
+        f"{errw:.3e}, launches on the sparse path "
+        f"{_launches(res, 'sparse', 'kernel_block')}")
+    check(errw <= K1_TOL["float32"], f"K1 W: {errw:.3e}")
+    res["k1_w_timing"] = dict(kernel=msw, matmul_f64=libw)
+    # bound_ms counts the work this Z needs; the dense count beside, and
+    # the share of the dense products that the kernel's warp steps run
+    rows.append(_k1_row("W", _launches(res, "sparse", "kernel_block"), errw,
+                        msw, plainw, bw_work, byw_work, libw,
+                        library_fn="torch.matmul on float64 copies",
+                        dense_bound_ms=bw, dense_bound_by=byw,
+                        work_share=work_share, mma_share=mma_share))
+    return rows
 
 
 def _summary_k2(res: dict) -> dict:
@@ -1148,12 +1364,16 @@ def _summary_k2(res: dict) -> dict:
 def _summary_sparse(res: dict, keep: dict) -> dict:
     """K3's row: the build the sparse path runs (float32 data, float64
     accumulation) at one full chunk of the cell against the fitted
-    landmarks (the score pass's and the solver's launches), and at the
-    whole test set (predict); the float32 build and the library call beside
-    it."""
+    landmarks, prepared once as the path prepares them (the score pass's
+    and the solver's launches), and at the whole test set (predict); the
+    float32 build and the library call beside it. Two bounds: the dense
+    count (2·nnz·p + 5·rows·p operations, as the earlier design did the
+    work) and the work that meets a non-zero of Z (2·Σ_c nnz_X(c)·nnz_Z(c)
+    + 5·rows·p), each against the bytes."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.sparse_block import sparse_cross
+    from repro_torch.kernels.sparse_block import (prepare_landmarks,
+                                                  sparse_cross)
     X, Z = _full_chunk(keep)
     Z = keep.get("sparse_Z", Z).contiguous()
     rows, p, d = X.shape[0], Z.shape[0], RCV1_DIM
@@ -1161,34 +1381,52 @@ def _summary_sparse(res: dict, keep: dict) -> dict:
     acc = torch.float64       # SPARSE_PRECISION's accumulation
     args = (X.data, X.indices, X.indptr, Z)
     rbf = dict(kind="rbf", bandwidth=RCV1_BANDWIDTH)
-    got = sparse_cross(*args, acc_dtype=acc, **rbf)
+    prep_ms = cuda_ms(lambda: prepare_landmarks(Z, acc), reps=3)
+    prep = prepare_landmarks(Z, acc)
+    prep32 = prepare_landmarks(Z, torch.float32)
+    log(f"[summary] K3 landmarks prepared once per fit in {prep_ms:.3f} ms; "
+        f"{_k3_split(X, prep)}")
+    got = sparse_cross(*args, acc_dtype=acc, prepared=prep, **rbf)
     want = ref.sparse_kernel_block_ref(X.data.to(acc), X.indices, X.indptr,
                                        Z.to(acc), **rbf).float()
     err3 = float((got - want).abs().max())
     del got, want
-    ms3 = cuda_ms(lambda: sparse_cross(*args, acc_dtype=acc, **rbf), reps=10)
+    ms3 = cuda_ms(lambda: sparse_cross(*args, acc_dtype=acc, prepared=prep,
+                                       **rbf), reps=10)
     plain3 = cuda_ms(lambda: ref.sparse_kernel_block_ref(
         X.data.to(acc), X.indices, X.indptr, Z.to(acc), **rbf).float(),
         reps=3)
-    ms3_f32 = cuda_ms(lambda: sparse_cross(*args, **rbf), reps=10)
-    lin3 = cuda_ms(lambda: sparse_cross(*args, kind="linear"), reps=10)
+    ms3_f32 = cuda_ms(lambda: sparse_cross(*args, prepared=prep32, **rbf),
+                      reps=10)
+    lin3 = cuda_ms(lambda: sparse_cross(*args, kind="linear",
+                                        prepared=prep32), reps=10)
     A = torch.sparse_csr_tensor(X.indptr, X.indices[:nnz], X.data[:nnz],
                                 size=(rows, d), check_invariants=False)
     Zt = Z.T.contiguous()
     lib3 = cuda_ms(lambda: torch.sparse.mm(A, Zt), reps=10)
     lib_err = float((torch.sparse.mm(A, Zt)
-                     - sparse_cross(*args, kind="linear")).abs().max())
+                     - sparse_cross(*args, kind="linear", prepared=prep32))
+                    .abs().max())
     T = _rcv1(keep)["test"].cast(torch.float32, "cuda")
     test_ms = cuda_ms(lambda: sparse_cross(T.data, T.indices, T.indptr, Z,
-                                           acc_dtype=acc, **rbf), reps=10)
-    b3, by3 = _bound_ms(2 * nnz * p + 5 * rows * p,
-                        8 * nnz + 4 * (rows + 1) + 4 * d * p + 4 * rows * p,
+                                           acc_dtype=acc, prepared=prep,
+                                           **rbf), reps=10)
+    work, _ = _k3_work(X, Z)
+    prep_bytes = sum(t.numel() * t.element_size() for t in (
+        prep.zz, prep.hot_slot, prep.hot, prep.colptr, prep.ent_j,
+        prep.ent_z))
+    nbytes = 8 * nnz + 4 * (rows + 1) + 4 * rows * p
+    b3, by3 = _bound_ms(2 * nnz * p + 5 * rows * p, nbytes + 4 * d * p,
                         "float64")
+    bw3, byw3 = _bound_ms(2 * work + 5 * rows * p, nbytes + prep_bytes,
+                          "float64")
     log(f"[summary] K3 rbf full chunk (rows,p,d)=({rows},{p},{d}), {nnz} "
         f"values, f32 data / f64 accumulation: kernel {ms3:.3f} ms, plain "
-        f"{plain3:.3f} ms, bound {b3:.3f} ms ({by3}), max|Δ| {err3:.3e}")
-    log(f"[summary] K3 rbf same chunk, f32 build: kernel {ms3_f32:.3f} ms, "
-        f"same bound")
+        f"{plain3:.3f} ms, bound {b3:.3f} ms ({by3}, dense count); bound "
+        f"of the work that meets a non-zero of Z "
+        f"({100 * work / (nnz * p):.2f} % of nnz·p) {bw3:.3f} ms ({byw3}); "
+        f"max|Δ| {err3:.3e}")
+    log(f"[summary] K3 rbf same chunk, f32 build: kernel {ms3_f32:.3f} ms")
     log(f"[summary] K3 linear same chunk, f32: kernel {lin3:.3f} ms, "
         f"torch.sparse.mm (cuSPARSE SpMM, f32) {lib3:.3f} ms, max|Δ| "
         f"between them {lib_err:.3e}")
@@ -1197,15 +1435,18 @@ def _summary_sparse(res: dict, keep: dict) -> dict:
         f"{test_ms:.3f} ms")
     check(err3 <= K3_TOL["float32"], f"K3 at full chunk: {err3:.3e}")
     res["k3_timing"] = dict(full_chunk_ms=ms3, full_chunk_f32_ms=ms3_f32,
-                            linear_f32_ms=lin3,
+                            linear_f32_ms=lin3, prepare_ms=prep_ms,
                             sparse_mm_ms=lib3, test_set_ms=test_ms,
-                            nnz=nnz, rows=rows)
+                            nnz=nnz, rows=rows, work=work)
     return dict(name="sparse_cross", route="cuda",
                 source="src/repro_torch/kernels/csrc/sparse_cross.cu",
                 replaces="src/repro/kernels/sparse_block.py:149",
                 launches=_launches(res, "sparse", "sparse_cross"),
-                max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=b3,
-                bound_by=by3, library_ms=lib3,
+                max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=bw3,
+                bound_by=byw3, library_ms=lib3,
+                # bound_ms counts the work this chunk's data needs; the
+                # dense count stands beside it
+                dense_bound_ms=b3, dense_bound_by=by3,
                 # library_ms times the linear kind in float32, which K3
                 # computes in library_kernel_ms
                 library_fn="linear, float32", library_kernel_ms=lin3)
@@ -1264,8 +1505,11 @@ def _summary_attention(res: dict) -> dict:
 def phase_summary(res: dict, keep: dict) -> None:
     """The kernel rows of the paths this run drove."""
     rows = []
-    if "Xtr" in keep:
-        rows.append(_summary_k1(res, keep))
+    for name in ("kernel_block", "sparse_cross"):
+        for line in res.get("ptxas", {}).get(name, []):
+            log(f"[summary] ptxas {name}: {line}")
+    if "Xtr" in keep or "k1" in keep:
+        rows.extend(_summary_k1(res, keep))
     if "Xtr" in keep or "k2" in keep:
         rows.append(_summary_k2(res))
     if "rcv1" in keep:
@@ -1275,14 +1519,61 @@ def phase_summary(res: dict, keep: dict) -> None:
     res["kernels"] = rows
 
 
+def phase_limits(res: dict, keep: dict) -> None:
+    """K2's 3xTF32 build launched through the library's entry point at
+    p = 2048, 4096 and 8192 (n = 5003), where the wrapper refuses
+    p > TF32X3_MAX_P, and K1's linear kind against torch.matmul at the
+    fit's n and p with d = 16 and 256 (random rows): the growth with d is
+    the products' rate."""
+    import torch
+    from repro_torch.kernels import ref, rls_scores
+    from repro_torch.kernels.rbf_block import kernel_block
+    g = torch.Generator(device="cuda").manual_seed(2)
+    fn, err = rls_scores._entry()
+    for p in (2048, 4096, 8192):
+        n = 5003
+        B, M = _scores_problem(n, p, torch.float32, g)
+        got = torch.empty(n, dtype=torch.float32, device="cuda")
+        Mf = M.float().contiguous()
+        code = fn(B.data_ptr(), Mf.data_ptr(), got.data_ptr(), n, p, 0, 0,
+                  B.device.index, torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"k2 entry point: {err(code).decode()}")
+        want = ref.rls_scores_ref(B, Mf)
+        rel = float(((got - want).abs() / want.abs()).max())
+        log(f"[limits] K2 3xTF32 (n,p)=({n},{p}) max rel Δ={rel:.3e} "
+            f"({K2_RTOL['float32'] / rel:.1f}x inside rtol "
+            f"{K2_RTOL['float32']:g})")
+        res.setdefault("k2_tf32x3_rel_err_by_p", {})[str(p)] = rel
+    n, p = N_TRAIN, P
+    g = torch.Generator(device="cuda").manual_seed(9)
+    sweep = {}
+    for dd in (16, 256):
+        Xd = torch.randn(n, dd, generator=g, device="cuda")
+        Zd = torch.randn(p, dd, generator=g, device="cuda")
+        sweep[dd] = (cuda_ms(lambda: kernel_block(Xd, Zd, kind="linear"),
+                             reps=5),
+                     cuda_ms(lambda: torch.matmul(Xd, Zd.T), reps=5))
+        del Xd, Zd
+    rate = {who: 2 * n * p * 240 / ((sweep[256][i] - sweep[16][i]) * 1e-3)
+            for i, who in enumerate(("kernel", "matmul"))}
+    log(f"[limits] K1 linear (n,p)=({n},{p}) at d = 16 / 256: kernel "
+        f"{sweep[16][0]:.3f} / {sweep[256][0]:.3f} ms, torch.matmul "
+        f"{sweep[16][1]:.3f} / {sweep[256][1]:.3f} ms; products between them "
+        f"at {rate['kernel'] / 1e12:.1f} / {rate['matmul'] / 1e12:.1f} "
+        f"TFLOP/s ({100 * rate['kernel'] / PEAK_OPS['float32']:.0f} / "
+        f"{100 * rate['matmul'] / PEAK_OPS['float32']:.0f} % of the float32 "
+        f"peak)")
+    res["k1_d_sweep_ms"] = {str(k): v for k, v in sweep.items()}
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help=f"comma-separated subset of {PHASES}")
+                        help=f"comma-separated subset of {PHASES + OPT_IN}")
     phases = parser.parse_args().phases.split(",")
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES + OPT_IN)
     if unknown:
         parser.error(f"unknown phases {sorted(unknown)}")
 
@@ -1307,14 +1598,14 @@ def main() -> int:
         f"{res['torch']}, CUDA {res['cuda']}")
     keep: dict = {}
     t_all = time.perf_counter()
-    for name in PHASES:
+    for name in PHASES + OPT_IN:
         if name not in phases:
             continue
         t0 = time.perf_counter()
         if name == "build":
             phase_build(res)
         elif name == "k1":
-            phase_k1(res)
+            phase_k1(res, keep)
         elif name == "k2":
             phase_k2(res, keep)
         elif name == "k3":
@@ -1331,6 +1622,8 @@ def main() -> int:
             phase_lm(res, keep)
         elif name == "summary":
             phase_summary(res, keep)
+        elif name == "limits":
+            phase_limits(res, keep)
         log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")
     res["total_s"] = time.perf_counter() - t_all
     if "card" not in res:

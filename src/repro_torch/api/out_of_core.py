@@ -114,18 +114,21 @@ def chunked_score_pass(config: SketchConfig, source: ChunkSource, Z: Tensor,
     ad, wd = ops.score_pass_dtypes(W.dtype)
     Lc = landmark_cholesky(W, config.jitter, solve_dtype=wd)
     p = Z.shape[0]
+    # CSR chunks: the landmarks are prepared for K3 once, for both passes
+    prep = (ops.prepare_sparse(Z) if isinstance(source, SparseChunkSource)
+            else None)
     CtC = torch.zeros((p, p), dtype=ad, device=Z.device)
     for chunk in source.chunks():
         xb = _cast_chunk(config, chunk.X)
         mb = (torch.arange(xb.shape[0], device=Z.device)
               < chunk.n_valid).to(W.dtype)
-        CtC = CtC + ops.score_pass_chunk_gram(xb, mb, Z, ad)
+        CtC = CtC + ops.score_pass_chunk_gram(xb, mb, Z, ad, prepared=prep)
     La = score_pass_core(Lc, CtC, lam, n)
     s_parts: list[Tensor] = []
     r_parts: list[Tensor] = []
     for chunk in source.chunks():
         s, r = ops.score_pass_chunk_scores(_cast_chunk(config, chunk.X), Z,
-                                           Lc, La)
+                                           Lc, La, prepared=prep)
         s_parts.append(s[:chunk.n_valid])
         r_parts.append(r[:chunk.n_valid])
     scores = torch.cat(s_parts)

@@ -36,6 +36,7 @@ from ..core.nystrom import (ColumnSample, NystromApprox,
                             nystrom_regularized_beta_from_stats,
                             nystrom_regularized_factors)
 from ..core.precision import to_dtype
+from ..data.sparse import CsrMatrix
 from ..registry import Registry
 from .config import SketchConfig
 
@@ -130,6 +131,7 @@ class _NystromChunkAccumulator:
         self.Gc = torch.zeros((p, p), dtype=self.accum_dtype,
                               device=landmarks.device)
         self.bc: Tensor | None = None   # allocated on the first chunk's y
+        self.prepared = None            # K3's landmarks, at the first CSR chunk
 
     def add(self, Xb, yb: Tensor, n_valid: int | None = None) -> None:
         """Fold one (possibly tail-padded) chunk into the statistics."""
@@ -140,7 +142,9 @@ class _NystromChunkAccumulator:
                                   dtype=self.accum_dtype, device=self.Z.device)
         mb = (torch.arange(rows, device=self.Z.device) < n_valid).to(
             self.Z.dtype)
-        Cs = self.ops.cross(Xb, self.Z)
+        if isinstance(Xb, CsrMatrix) and self.prepared is None:
+            self.prepared = self.ops.prepare_sparse(self.Z)
+        Cs = self.ops.cross(Xb, self.Z, prepared=self.prepared)
         if self.weights is not None:
             Cs = Cs * self.weights[None, :]
         # mask BEFORE the reductions: padded rows are exact zeros

@@ -34,7 +34,10 @@ in ``solve_dtype``.
 
 A ``CsrMatrix`` row block is a valid X wherever Z is dense: ``torch`` takes
 the plain sparse contraction through ``kernel.gram``, ``hopper`` launches
-K3 ``sparse_cross`` for rbf/linear/poly.
+K3 ``sparse_cross`` for rbf/linear/poly. K3 works from landmarks prepared
+once per Z: ``prepare_sparse(Z)`` makes the preparation (None where a
+backend needs none) and ``cross``, ``score_pass_chunk_gram`` and
+``score_pass_chunk_scores`` take it as ``prepared=``.
 
 The chunked Theorem-4 seam (``score_pass_dtypes``,
 ``score_pass_chunk_gram``, ``score_pass_chunk_scores`` and the p×p
@@ -207,9 +210,15 @@ class KernelOps:
 
     # ------------------------------------------------------- the protocol
 
-    def cross(self, X_test: Tensor, Z: Tensor) -> Tensor:
-        """k(X_test, Z) ∈ R^{m×p}; concrete backends implement it."""
+    def cross(self, X_test: Tensor, Z: Tensor, *, prepared=None) -> Tensor:
+        """k(X_test, Z) ∈ R^{m×p}; concrete backends implement it.
+        ``prepared`` is ``prepare_sparse(Z)``, used for CSR ``X_test``."""
         raise NotImplementedError
+
+    def prepare_sparse(self, Z: Tensor):
+        """Z prepared once for CSR blocks against it, handed back to
+        ``cross(..., prepared=)``; None where the backend needs none."""
+        return None
 
     def columns(self, X: Tensor, idx: Tensor) -> Tensor:
         """C = K[:, idx] — only the sampled columns, never forming K."""
@@ -261,19 +270,20 @@ class KernelOps:
         return (dtype if acc is None else acc, dtype if sd is None else sd)
 
     def score_pass_chunk_gram(self, xb, mask: Tensor, Z: Tensor,
-                              accum_dtype) -> Tensor:
+                              accum_dtype, *, prepared=None) -> Tensor:
         """One chunk's CᵀC, p×p in ``accum_dtype``. k(x, z) ≠ 0 for a
         zero-padded row, so the mask multiplies the block before the
         reduction: padded rows are exact zeros in every precision."""
-        Cb = (self.cross(xb, Z) * mask[:, None]).to(accum_dtype)
+        Cb = (self.cross(xb, Z, prepared=prepared)
+              * mask[:, None]).to(accum_dtype)
         return Cb.T @ Cb
 
-    def score_pass_chunk_scores(self, xb, Z: Tensor, Lc: Tensor,
-                                La: Tensor) -> tuple[Tensor, Tensor]:
+    def score_pass_chunk_scores(self, xb, Z: Tensor, Lc: Tensor, La: Tensor,
+                                *, prepared=None) -> tuple[Tensor, Tensor]:
         """One chunk's (scores, ‖B_i‖²): the chunk's C block again, read
         through two triangular solves against the ``score_pass_core``
         factors, in xb's dtype."""
-        Cb = self.cross(xb, Z)
+        Cb = self.cross(xb, Z, prepared=prepared)
         Bt = torch.linalg.solve_triangular(Lc, Cb.T.to(Lc.dtype), upper=False)
         V = torch.linalg.solve_triangular(La, Bt, upper=False)
         return (torch.sum(V * V, dim=0).to(Cb.dtype),
@@ -291,7 +301,7 @@ class TorchOps(KernelOps):
 
     name = "torch"
 
-    def cross(self, X_test: Tensor, Z: Tensor) -> Tensor:
+    def cross(self, X_test: Tensor, Z: Tensor, *, prepared=None) -> Tensor:
         X_test, Z = self._cast_data(X_test, Z)
         return self._gram(X_test, Z)
 
@@ -313,16 +323,29 @@ class HopperOps(KernelOps):
             block = torch.promote_types(block, dt)
         return self._accum(block)
 
-    def cross(self, X_test, Z: Tensor) -> Tensor:
+    def _sparse_kind(self) -> str | None:
+        """K3's kind for the kernel; None for kernels without a sparse
+        body (bernoulli), which go to _gram and its descriptive error."""
+        return {RBFKernel: "rbf", LinearKernel: "linear",
+                PolynomialKernel: "poly"}.get(type(self.kernel))
+
+    def prepare_sparse(self, Z: Tensor):
+        """K3's once-per-Z preparation (``kernels.ops.sparse_landmarks``)
+        for CSR blocks cast to the policy's data dtype, on the card."""
+        from ..kernels import ops as kops
+        if self._sparse_kind() is None:
+            return None
+        (Z,) = self._cast_data(Z)
+        return kops.sparse_landmarks(Z, Z.dtype,
+                                     acc_dtype=self._tile_acc(Z.dtype))
+
+    def cross(self, X_test, Z: Tensor, *, prepared=None) -> Tensor:
         from ..kernels import ops as kops
         X_test, Z = self._cast_data(X_test, Z)
         acc = self._tile_acc(X_test.dtype, Z.dtype)
         k = self.kernel
         if isinstance(X_test, CsrMatrix):
-            # K3; kernels without a sparse body (bernoulli) go to _gram,
-            # whose dispatch raises the descriptive error
-            kind = {RBFKernel: "rbf", LinearKernel: "linear",
-                    PolynomialKernel: "poly"}.get(type(k))
+            kind = self._sparse_kind()
             if kind is None:
                 return self._gram(X_test, Z)
             return kops.sparse_block(
@@ -330,7 +353,8 @@ class HopperOps(KernelOps):
                 bandwidth=getattr(k, "bandwidth", 1.0),
                 degree=getattr(k, "degree", 2),
                 scale=getattr(k, "scale", 1.0),
-                offset=getattr(k, "offset", 1.0), acc_dtype=acc)
+                offset=getattr(k, "offset", 1.0), acc_dtype=acc,
+                prepared=prepared)
         if isinstance(k, RBFKernel):
             return kops.rbf_block(X_test, Z, bandwidth=k.bandwidth,
                                   acc_dtype=acc)

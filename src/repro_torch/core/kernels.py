@@ -31,7 +31,6 @@ from torch import Tensor
 
 from ..data.sparse import CsrMatrix
 from ..kernels.ref import sparse_kernel_block_ref
-from ..kernels.sparse_block import sparse_row_sqnorms
 
 
 class Kernel(Protocol):
@@ -64,6 +63,13 @@ def _sparse_block(X: CsrMatrix, Z: Tensor, kind: str, **params) -> Tensor:
                                    **params)
 
 
+def _sparse_row_sqnorms(X: CsrMatrix) -> Tensor:
+    # imported here: kernels.sparse_block imports core (precision), so a
+    # module-level import would make importing it first a cycle
+    from ..kernels.sparse_block import sparse_row_sqnorms
+    return sparse_row_sqnorms(X.data, X.indptr)
+
+
 def _sqdist(X: Tensor, Z: Tensor) -> Tensor:
     """Pairwise squared euclidean distances, numerically clamped at 0."""
     xx = torch.sum(X * X, dim=-1)[:, None]
@@ -81,7 +87,7 @@ class LinearKernel:
 
     def diag(self, X: Tensor) -> Tensor:
         if isinstance(X, CsrMatrix):
-            return sparse_row_sqnorms(X.data, X.indptr)
+            return _sparse_row_sqnorms(X)
         return torch.sum(X * X, dim=-1)
 
 
@@ -114,7 +120,7 @@ class PolynomialKernel:
 
     def diag(self, X: Tensor) -> Tensor:
         if isinstance(X, CsrMatrix):
-            sq = sparse_row_sqnorms(X.data, X.indptr)
+            sq = _sparse_row_sqnorms(X)
             return (sq / self.scale + self.offset) ** self.degree
         return (torch.sum(X * X, dim=-1) / self.scale
                 + self.offset) ** self.degree

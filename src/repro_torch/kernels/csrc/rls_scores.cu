@@ -30,12 +30,12 @@
 // and the three products accumulate in float32, small terms first. A
 // product then errs by less than 3 * 2^-20 of |a b| (IEEE float32: 2^-24;
 // one TF32 product: 2^-10). Measured on an H100 (chip_smoke.py, phase
-// k2), the scores sit within 1.4e-5 (relative) of IEEE float32 at
-// p = 2048, growing about linearly with p: the tensor cores' float32
-// accumulation, not the split, sets that error. p <= 2048 is all that was
-// measured, and the largest p of any configuration or test; a larger p
-// must be measured against rtol 2e-4 before it is used. The fold
-// multiplies by the unsplit float32 B[r, j].
+// k2), the scores sit within 1.31e-5 (relative) of IEEE float32 at
+// p = 2048, 2.54e-5 at 4096 and 4.96e-5 at 8192: the tensor cores'
+// float32 accumulation, not the split, sets that error, and only p <= 2048
+// stays 10x inside rtol 2e-4, so the wrapper (rls_scores.py) refuses a
+// larger p in this build. The fold multiplies by the unsplit float32
+// B[r, j].
 //
 // float64, and the two mixed builds (float32 data with float64 accumulation
 // and the reverse): SIMT fma on the CUDA cores (tile.cuh), one block of 256
@@ -137,20 +137,6 @@ constexpr int A_FLOATS = BM * LDA, B_FLOATS = BK * LDB;
 constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
 constexpr int SMEM = STAGES * STAGE_FLOATS * (int)sizeof(float);
 
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool valid, int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? bytes : 0;       // 0 bytes read: zeros written
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-}
-
 // x = hi + lo exactly: hi is x with the 13 low mantissa bits cleared (a
 // TF32 value), lo = x - hi; the tensor cores read lo's top 19 bits. Two
 // instructions: rounding both parts (cvt.rna) made K2 slower at the main
@@ -189,14 +175,15 @@ __device__ __forceinline__ void load_slab(float* st,
     const int64_t gr = row0 + r;
     const int gc = k0 + c;
     const bool ok = gr < n && gc < p;
-    cp_async(As + r * LDA + c, ok ? B + gr * p + gc : B, ok, 4 * W);
+    cp_async<4 * W>(As + r * LDA + c, ok ? B + gr * p + gc : B, ok);
   }
 #pragma unroll
   for (int e = threadIdx.x; e < BK * BN / W; e += THREADS) {
     const int k = e / (BN / W), j = (e % (BN / W)) * W;
     const int gk = k0 + k, gj = j0 + j;
     const bool ok = gk < p && gj < p;
-    cp_async(Bs + k * LDB + j, ok ? M + (int64_t)gk * p + gj : M, ok, 4 * W);
+    cp_async<4 * W>(Bs + k * LDB + j, ok ? M + (int64_t)gk * p + gj : M,
+                     ok);
   }
 }
 
@@ -229,17 +216,17 @@ rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < slabs)
       load_slab<VEC>(sm + s * STAGE_FLOATS, B, M, row0, n, p, s, kt);
-    asm volatile("cp.async.commit_group;" ::: "memory");
+    cp_async_commit();
   }
 
   for (int it = 0; it < slabs; ++it) {
-    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
+    cp_async_wait<STAGES - 2>();
     __syncthreads();                  // slab it visible; slot it-1 free
     const int next = it + STAGES - 1;
     if (next < slabs)
       load_slab<VEC>(sm + (next % STAGES) * STAGE_FLOATS, B, M, row0, n, p,
                      next, kt);
-    asm volatile("cp.async.commit_group;" ::: "memory");
+    cp_async_commit();
 
     const float* As = sm + (it % STAGES) * STAGE_FLOATS + wm * WM * LDA;
     const float* Bs = sm + (it % STAGES) * STAGE_FLOATS + A_FLOATS + wn * WN;
@@ -293,7 +280,7 @@ rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
         }
     }
   }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  cp_async_wait<0>();
   __syncthreads();                    // the stages are free for the sums
 
   // a row's partials: 4 threads of a quad, then the 4 warps across j

@@ -1,7 +1,15 @@
-// Shared tiling for the port's two GEMM-shaped kernels (kernel_block.cu,
-// rls_scores.cu): a block of 256 threads arranged 16 x 16 owns a BM x BN
-// output tile and walks the contraction in BK-deep slabs staged through
-// shared memory. Thread (ty, tx) owns rows ty*TM .. ty*TM+TM-1 of the tile
+// Shared pieces of the port's two GEMM-shaped kernels (kernel_block.cu,
+// rls_scores.cu).
+//
+// cp_async / cp_async_commit / cp_async_wait: asynchronous copies from
+// device memory into shared memory (Ampere's cp.async, kept on Hopper),
+// with the copy's size a template argument; a copy that is not `valid`
+// reads nothing and writes zeros, so ragged edges need no padding copies.
+//
+// The SIMT tiling (Tile, stage_rows, tile_fma) serves K2's float64 and
+// mixed-precision builds: a block of 256 threads arranged 16 x 16 owns a
+// BM x BN output tile and walks the contraction in BK-deep slabs staged
+// through shared memory. Thread (ty, tx) owns rows ty*TM .. ty*TM+TM-1 of the tile
 // (contiguous, so its A-operand reads merge into vector loads) and columns
 // tx, tx+16, ... (strided, so neighbouring threads read neighbouring words
 // of the B operand and store neighbouring output columns).
@@ -19,6 +27,34 @@ namespace repro_tile {
 constexpr int TY = 16, TX = 16;
 constexpr int NT = TY * TX;   // threads per block
 constexpr int PAD = 4;        // keeps each staged row 16-byte aligned
+
+// Copy BYTES (4, 8 or 16) from src to the shared-memory address dst; zeros
+// when !valid (src is then never read, but must be a valid address).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async size");
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N commit groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ float fma_(float a, float b, float c) {
   return __fmaf_rn(a, b, c);

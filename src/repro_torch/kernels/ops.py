@@ -15,7 +15,7 @@ from . import ref
 from .flash_attention import attention_shapes, flash_attention
 from .rbf_block import default_acc, kernel_block
 from .rls_scores import rls_scores_fused
-from .sparse_block import sparse_cross
+from .sparse_block import SparseLandmarks, prepare_landmarks, sparse_cross
 
 
 def _on_cuda(*tensors: Tensor) -> bool:
@@ -70,21 +70,37 @@ def rls_scores(B: Tensor, M: Tensor, *, acc_dtype=None) -> Tensor:
 def sparse_block(data: Tensor, indices: Tensor, indptr: Tensor, Z: Tensor,
                  *, kind: str = "rbf", bandwidth: float = 1.0,
                  degree: int = 2, scale: float = 1.0, offset: float = 1.0,
-                 acc_dtype=None) -> Tensor:
+                 acc_dtype=None,
+                 prepared: SparseLandmarks | None = None) -> Tensor:
     """CSR kernel block k(X_csr, Z) for ``kind`` ∈ {rbf, linear, poly}, in
     the result dtype ``promote(data, Z)``, accumulating in ``acc_dtype``
     (default: the result dtype). CUDA operands launch K3 ``sparse_cross``
-    (epilogue fused); CPU operands take the unfused plain version."""
+    (epilogue fused) against ``prepared`` (``sparse_landmarks`` of Z, made
+    here when None); CPU operands take the unfused plain version."""
     out = torch.promote_types(data.dtype, Z.dtype)
     if _on_cuda(data, indices, indptr, Z):
         return sparse_cross(data.to(out).contiguous(), indices.contiguous(),
                             indptr.contiguous(), Z.to(out).contiguous(),
                             kind=kind, bandwidth=bandwidth, degree=degree,
-                            scale=scale, offset=offset, acc_dtype=acc_dtype)
+                            scale=scale, offset=offset, acc_dtype=acc_dtype,
+                            prepared=prepared)
     acc = out if acc_dtype is None else to_dtype(acc_dtype)
     return ref.sparse_kernel_block_ref(
         data, indices, indptr, Z, kind=kind, bandwidth=bandwidth,
         degree=degree, scale=scale, offset=offset, acc_dtype=acc)
+
+
+def sparse_landmarks(Z: Tensor, data_dtype: torch.dtype, *,
+                     acc_dtype=None) -> SparseLandmarks | None:
+    """Z prepared once for K3 against CSR blocks whose values are
+    ``data_dtype`` (``sparse_block`` then computes in ``promote(data, Z)``,
+    accumulating in ``acc_dtype``, default that dtype); None for CPU
+    landmarks, whose plain version needs no preparation."""
+    if not _on_cuda(Z):
+        return None
+    out = torch.promote_types(data_dtype, Z.dtype)
+    acc = out if acc_dtype is None else to_dtype(acc_dtype)
+    return prepare_landmarks(Z.to(out), acc)
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,

@@ -8,8 +8,12 @@ the top of the CUDA source for the tiling and its bound).
 
 Accumulation follows the reference's rule: float64 inputs accumulate in
 float64, float32 inputs in IEEE float32 (never TF32); ``acc_dtype``
-overrides it. The block comes back in the input dtype. bf16 blocks are a
-ROADMAP item and raise here.
+overrides it. float32 accumulation runs IEEE fma on the CUDA cores;
+float64 accumulation (float64 data, or float32 data with
+``acc_dtype=float64`` as the sparse path's W = k(Z, Z)) runs on the FP64
+tensor cores (``mma.sync`` m16n8k8, IEEE float64 fused multiply-adds),
+skipping the products of blocks whose values are all zero. The block comes
+back in the input dtype. bf16 blocks are a ROADMAP item and raise here.
 
 This wrapper takes CUDA tensors only; ``repro_torch.kernels.ops`` sends
 CPU tensors to the plain version in ``ref``.

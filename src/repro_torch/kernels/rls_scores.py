@@ -10,10 +10,13 @@ Accumulation follows the reference's rule (f64 in ⇒ f64, else f32;
 Pallas body casts it, and the scores come back in B's dtype. float32 data
 with float32 accumulation runs on the tensor cores as 3xTF32 (each operand
 split into a TF32 high part and the rest, three products summed in
-float32: within about 1.4e-5 of IEEE float32 at p = 2048 on an H100,
-growing about linearly with p; measured for p ≤ 2048 only, the largest p of
-any configuration or test); float64 and the mixed builds run IEEE fma on
-the CUDA cores. bf16 is a ROADMAP item and raises here.
+float32), and only for p ≤ ``TF32X3_MAX_P``: on an H100 its scores sit
+within 1.31e-5 (relative) of IEEE float32 at p = 2048, 15× inside the
+float32 rtol 2e-4, but 2.5e-5 at p = 4096 and 5.0e-5 at p = 8192, growing
+with p through the tensor cores' float32 accumulation, so a larger p is
+refused and names the float64-accumulating build. float64 and the mixed
+builds run IEEE fma on the CUDA cores. bf16 is a ROADMAP item and raises
+here.
 
 This wrapper takes CUDA tensors only; ``repro_torch.kernels.ops`` sends
 CPU tensors to the plain version in ``ref``.
@@ -30,6 +33,10 @@ from ..core.precision import to_dtype
 from .rbf_block import DTYPE_CODES, check_cuda, check_dtypes, default_acc
 
 _INT32_MAX = 2**31 - 1
+# the largest p at which the 3xTF32 build stays 10x inside the float32 rtol
+# 2e-4 (measured on an H100 by chip_smoke.py phase k2: 1.31e-5 at p = 2048,
+# 2.54e-5 at 4096, 4.96e-5 at 8192)
+TF32X3_MAX_P = 2048
 
 
 @functools.cache
@@ -64,6 +71,13 @@ def rls_scores_fused(B: Tensor, M: Tensor, *, acc_dtype=None) -> Tensor:
     n, p = B.shape
     if max(n, p) > _INT32_MAX:
         raise ValueError(f"rls_scores shape {(n, p)} exceeds int32")
+    if B.dtype == torch.float32 and acc == torch.float32 and p > TF32X3_MAX_P:
+        raise ValueError(
+            f"rls_scores: the float32 build (3xTF32 on the tensor cores) is "
+            f"measured within the float32 tolerance only up to p = "
+            f"{TF32X3_MAX_P}, got p = {p}; pass acc_dtype=\"float64\" (in a "
+            f"SketchConfig: Precision(accum_dtype=\"f64\")) for the IEEE "
+            f"float64-accumulating build")
     M = M.to(acc).contiguous()
     out = torch.empty((n,), dtype=B.dtype, device=B.device)
     if n == 0:

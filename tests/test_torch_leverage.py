@@ -189,3 +189,35 @@ def test_r1_cell_is_finite_and_close_to_float64():
         X.astype("float64"), y.astype("float64"), score_landmarks=idx)
     rel = (m32.scores().double() - m64.scores()).abs() / m64.scores().abs()
     assert float(rel.max()) <= 1e-4
+
+
+def test_own_draws_rank_and_risk_like_the_exact_oracle():
+    """The port's own draws, checked in distribution (ROADMAP P2), as
+    tests/test_concentration.py checks the reference's on the same problem:
+    its rls_fast scores rank the rows like the exact Definition-1 scores
+    (Spearman ≥ 0.9), and its rls_fast fit reaches risk parity (≤ 1.05×,
+    the mean over 3 seeds) with the rls_exact-sampled oracle at the same p.
+    No reference draw is injected; torch only."""
+    n, d, lam = 301, 40, 1e-2
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, d))
+    X[rng.random(X.shape) > 0.12] = 0.0
+    w1, w2 = rng.normal(size=d), rng.normal(size=d)
+    f_star = (np.sin(2.0 * (X @ w1) / np.sqrt(d))
+              + 0.3 * (X @ w2) / np.sqrt(d))
+    y = f_star + 0.1 * rng.normal(size=n)
+    kernel = RBFKernel(4.0)
+    cfg = SketchConfig(kernel, p=48, p_scores=96, lam=lam, device="cpu",
+                       solver="nystrom_regularized")
+    fast = SketchedKRR(cfg.replace(seed=2)).fit(X, y).scores()
+    exact = leverage.ridge_leverage_scores(kernel.gram(t(X), t(X)),
+                                           lam * cfg.eps)
+    ranks = [np.argsort(np.argsort(s.numpy())) for s in (fast, exact)]
+    assert float(np.corrcoef(*ranks)[0, 1]) >= 0.9
+    risk = {"rls_fast": 0.0, "rls_exact": 0.0}
+    for seed in range(3):
+        for sampler in risk:
+            model = SketchedKRR(cfg.replace(seed=seed, sampler=sampler))
+            pred = model.fit(X, y).predict(X).numpy()
+            risk[sampler] += float(np.mean((pred - f_star) ** 2)) / 3
+    assert risk["rls_fast"] <= 1.05 * risk["rls_exact"], risk
