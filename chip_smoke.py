@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA GPU
 
-Drives ``repro_torch`` (never the JAX package) through ten phases and
+Drives ``repro_torch`` (never the JAX package) through eleven phases and
 exits non-zero on any failure:
 
   1. build     compile the CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -49,7 +49,23 @@ exits non-zero on any failure:
                torch and the CSR fit against the dense fit of the same rows
                densified (K3 against K1); fit(SparseChunkSource) against
                fit(CsrMatrix), and partial_fit over three chunks + finalize.
-  9. lm        the dense LM at phi4-mini-3.8b's published widths (32 layers,
+  9. iter      the iterative solvers, the streaming backend and the
+               multi-epoch end_pass protocol, launch counts zeroed before
+               and read after each path: (a) solver="falkon_pcg" in memory
+               on the MSD-shaped rows, fit then predict_batched(256), with
+               the direct nystrom_regularized fit on the same draws beside
+               it; (b) solver="eigenpro" in memory; (c) the streamed
+               Theorem-4 pass alone (backend="streaming", block_rows=4096):
+               its peak memory, its scores against the hopper pass and
+               both against float64 scores, then a streaming fit; (d)
+               falkon_pcg out of core on the RCV1-shaped rows in the
+               sparse cell's configuration (K3), its beta against the
+               chunked nystrom_regularized beta; (e) eigenpro through
+               fit(ArrayChunkSource(MSD, chunk_rows=131,072)), counting the
+               source's passes; (f) hopper (streaming) against torch at
+               n = 20,000 for falkon_pcg, eigenpro and streaming. Each fit
+               is profiled once more.
+ 10. lm        the dense LM at phi4-mini-3.8b's published widths (32 layers,
                d_model 3072, 24 query / 8 KV heads, vocab 200,064), bfloat16,
                use_pallas, random weights from seed 0: the prefill of 1 x
                8,192 tokens (one K4 launch per layer, counts zeroed before
@@ -57,15 +73,17 @@ exits non-zero on any failure:
                chunked attention, decode_step against the prefill at 64
                tokens, and ServeEngine(slots=4, max_len=1024) answering 8
                requests of 32 new tokens.
- 10. summary   each kernel's time at its path's shapes (CUDA events), its
+ 11. summary   each kernel's time at its path's shapes (CUDA events), its
                plain version's, the matching PyTorch library call's, and
                its bound; one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 
 ``--phases`` runs a subset (``build,k3,sparse`` is the short call for the
-sparse path, ``build,k4,lm,summary`` for the LM, ``build,k2,k4,summary``
-for the kernel checks and K2 / K4 rows alone, ``build,k1,k3,summary`` for
-K1's and K3's checks and rows); the default runs all ten. ``limits``, run
+sparse path, ``build,iter`` for the iterative and streaming paths (it
+makes its own data; ``build,iter,summary`` adds K1's rows at their
+shapes), ``build,k4,lm,summary`` for the LM, ``build,k2,k4,summary`` for
+the kernel checks and K2 / K4 rows alone, ``build,k1,k3,summary`` for
+K1's and K3's checks and rows); the default runs all eleven. ``limits``, run
 only when named (``build,limits``), measures K2's 3xTF32 error at p = 2048,
 4096 and 8192 below the wrapper (which refuses p > 2048 in that build) and
 K1's float32 linear kind against ``torch.matmul`` at d = 16 and 256.
@@ -82,7 +100,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "k1", "k2", "k3", "k4", "main", "parity", "sparse",
-          "lm", "summary")
+          "iter", "lm", "summary")
 # run only when named: the measurements behind two limits that PERF.md
 # states, K2's TF32X3_MAX_P and K1's float32 product rate
 OPT_IN = ("limits",)
@@ -143,6 +161,32 @@ PARITY_TOL = {"scores": 1e-4, "predictions": 2e-2, "beta": 2e-2}
 # policy); the tolerances leave a margin of about 5 over that worst case
 SPARSE_PARITY_TOL = {"scores": 1e-2, "predictions": 2e-5, "beta": 2e-5}
 K3_TOL = {"float32": 2e-5, "float64": 1e-12}      # atol on blocks
+# phase iter. The streamed score pass against the hopper pass on the same
+# landmarks, max relative error of the scores: in float32 the two routes
+# differ by more than PARITY_TOL's 1e-4. The streamed route sums CᵀC in
+# float32 and reads it through L⁻¹; the dense route rounds B = C L⁻ᵀ (a
+# float64 solve) to float32 and sums BᵀB. Against float64 scores on the
+# same landmarks, on the CPU (tools/iter_parity_probe.py): streamed
+# 1.56e-4 / 1.83e-4 / 3.09e-4 at n = 20,000 / 40,000 / 80,000 and 8.62e-4
+# at the cell's 463,715; dense 1.77e-5 / 1.31e-5 / 1.26e-5. The bound at
+# the full n is about 11x the CPU's 8.8e-4 for the two together; at the
+# parity size (f), 13x its 1.56e-4 (there one float32 rounding of the
+# blocks alone moves the streamed scores by 1.53e-4).
+ITER_SCORES_TOL = 1e-2
+ITER_PARITY_SCORES_TOL = 2e-3
+# (f) does not hold falkon_pcg's β between hopper and torch: at this λ the
+# float32 system does not determine β below a few per cent. On an H100
+# (n = 20,000; tools/falkon_beta_probe.py), the two converge (108 and 113
+# iterations with solver_iters = 300; 100 at the default) to β's 3.6e-2
+# apart, each 2.6e-2 from the direct float32 nystrom_regularized β with
+# the same draws, while their predictions agree to 6.2e-6 at the test
+# rows and 2.3e-5 at the training rows: the directions they part along
+# carry no prediction. Predictions are held for every path.
+ITER_FREE_BETA = {("falkon_pcg", "beta")}
+# the out-of-core falkon_pcg beta against the chunked nystrom_regularized
+# beta (relative l2; the reference's bound between the two solvers,
+# tests/test_iterative.py)
+ITER_BETA_TOL = 1e-3
 
 # K4 against its plain version: float32 at the atol of
 # tests/test_kernels_pallas.py (both IEEE float32). bfloat16, compared in
@@ -688,12 +732,19 @@ def _msd_data():
     return (X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], f[N_TRAIN:])
 
 
+def _msd(keep: dict):
+    """The MSD-shaped rows (made once per run): train X, y, test X, f*."""
+    if "msd" not in keep:
+        keep["msd"] = _msd_data()
+    return keep["msd"]
+
+
 def phase_main(res: dict, keep: dict) -> None:
     import torch
     from repro_torch.api import RBFKernel, SketchConfig, SketchedKRR
     from repro_torch.kernels import ops as kops
     t0 = time.perf_counter()
-    Xtr, ytr, Xte, fte = _msd_data()
+    Xtr, ytr, Xte, fte = _msd(keep)
     log(f"[main] data {Xtr.shape} train, {Xte.shape} test (d={DIM}) made "
         f"in {time.perf_counter() - t0:.1f} s")
     cfg = SketchConfig(RBFKernel(BANDWIDTH), p=P, lam=LAM)
@@ -937,6 +988,326 @@ def phase_sparse(res: dict, keep: dict) -> None:
     check(mse_pf < float(torch.var(f_sub)), f"partial_fit test MSE {mse_pf}")
     res["sparse"]["partial_fit_mse"] = mse_pf
 
+
+def _counting_source(X, y, chunk_rows: int):
+    """An ``ArrayChunkSource`` that counts its ``chunks()`` calls (passes)."""
+    from repro_torch.data import ArrayChunkSource
+
+    class Counting(ArrayChunkSource):
+        passes = 0
+
+        def chunks(self):
+            self.passes += 1
+            return super().chunks()
+
+    return Counting(X, y, chunk_rows)
+
+
+def _run_path(label: str, fit, predict=None) -> dict:
+    """One path of phase ``iter``: launch counts zeroed before the fit and
+    read after it and after the predictions; host clock ending in a
+    synchronise."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = kops.launch_counts()
+    yhat, pred_s = None, 0.0
+    if predict is not None:
+        t0 = time.perf_counter()
+        yhat = predict(out)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+    return dict(label=label, out=out, fit_s=fit_s, predict_s=pred_s,
+                fit_launches=fit_counts, launches=kops.launch_counts(),
+                yhat=yhat)
+
+
+def _mse(yhat, f) -> float:
+    import torch
+    return float(torch.mean((yhat - torch.as_tensor(f, device="cuda")) ** 2))
+
+
+def _profile_line(tag: str, prof: dict, wall_s: float) -> None:
+    prof["busy_share_of_unprofiled_wall"] = prof["busy_us"] / 1e6 / wall_s
+    top = "; ".join(f"{r['name'][:40]} {r['device_us'] / 1e3:.1f} ms "
+                    f"x{r['calls']}" for r in prof["kernels"][:4])
+    log(f"[iter] {tag} profiled: device busy {prof['busy_us'] / 1e3:.1f} ms "
+        f"= {100 * prof['busy_share_of_unprofiled_wall']:.1f} % of the "
+        f"unprofiled {1e3 * wall_s:.0f} ms (profiled wall "
+        f"{prof['wall_us'] / 1e3:.0f} ms); top: {top}")
+
+
+def phase_iter(res: dict, keep: dict) -> None:
+    """The iterative solvers, the streaming backend and the multi-epoch
+    end_pass protocol at full size: (a) falkon_pcg and (b) eigenpro in
+    memory on the MSD-shaped rows, (c) the streamed Theorem-4 pass and a
+    streaming fit, (d) falkon_pcg out of core on the RCV1-shaped rows
+    (K3), (e) eigenpro through fit(ArrayChunkSource), (f) hopper against
+    torch at n = 20,000 for the three."""
+    import math
+    import torch
+    from repro_torch.api import (Precision, RBFKernel, SketchConfig,
+                                 SketchedKRR)
+    from repro_torch.core.backends import ops_for
+    from repro_torch.core.eigenpro import auto_batch_rows
+    from repro_torch.core.leverage import draw_landmarks, fast_ridge_leverage
+    Xtr, ytr, Xte, fte = _msd(keep)
+    out: dict = {}
+    res["iter"] = out
+    var_f = float(torch.var(torch.as_tensor(fte)))
+    cfg = SketchConfig(RBFKernel(BANDWIDTH), p=P, lam=LAM)
+
+    def check_fit(tag, run, n_test):
+        yhat = run["yhat"]
+        mse = _mse(yhat, fte if tag != "d" else _rcv1(keep)["f_test"])
+        check(yhat.shape == (n_test,), f"({tag}) predictions shape")
+        check(bool(torch.isfinite(yhat).all()), f"({tag}) non-finite "
+              "predictions")
+        check(bool(torch.isfinite(run["out"].state().beta).all()),
+              f"({tag}) non-finite beta")
+        return mse
+
+    # (a) falkon_pcg in memory, then the direct fit with the same draws
+    a = _run_path("a", lambda: SketchedKRR(cfg.replace(
+        solver="falkon_pcg")).fit(Xtr, ytr),
+        lambda m: m.predict_batched(Xte, batch_size=PREDICT_BATCH))
+    st = a["out"].state()
+    mse_a = check_fit("a", a, N_TEST)
+    direct = SketchedKRR(cfg.replace(solver="nystrom_regularized")).fit(
+        Xtr, ytr, sample=a["out"].sample())
+    mse_direct = _mse(direct.predict_batched(Xte, batch_size=PREDICT_BATCH),
+                      fte)
+    k1_a = a["fit_launches"]["kernel_block"]
+    log(f"[iter] (a) falkon_pcg in memory: fit {a['fit_s']:.2f} s, "
+        f"{st.iters} iterations (solver_iters {cfg.solver_iters}, tol "
+        f"{cfg.solver_tol:g}), last residuals "
+        f"{[float(r) for r in st.residuals[-5:]]}; K1 launches in the fit "
+        f"{k1_a} (expected iterations + 3 = {st.iters + 3}), after predict "
+        f"{a['launches']['kernel_block']}; test MSE {mse_a:.4f}, direct "
+        f"nystrom_regularized with the same draws {mse_direct:.4f} (ratio "
+        f"{mse_a / mse_direct:.4f}), var(f*) {var_f:.4f}")
+    check(k1_a == st.iters + 3, f"(a) K1 launched {k1_a} times in the fit, "
+          f"expected {st.iters + 3}")
+    check(mse_a < var_f, f"(a) test MSE {mse_a:.4f} not below {var_f:.4f}")
+    out["a"] = dict(fit_s=a["fit_s"], predict_s=a["predict_s"],
+                    iters=st.iters, residuals=[float(r) for r in
+                                               st.residuals],
+                    test_mse=mse_a, direct_test_mse=mse_direct,
+                    launches=a["launches"], fit_launches=a["fit_launches"])
+    del direct
+    prof = _profile(lambda: SketchedKRR(cfg.replace(
+        solver="falkon_pcg")).fit(Xtr, ytr))
+    _profile_line("(a) falkon_pcg fit", prof, a["fit_s"])
+    out["a"]["profile"] = prof
+    del a
+
+    # (b) eigenpro in memory
+    m_rows = auto_batch_rows(N_TRAIN, P, 4, cfg.batch_budget_mb)
+    per_epoch = math.ceil(N_TRAIN / m_rows)
+    b = _run_path("b", lambda: SketchedKRR(cfg.replace(
+        solver="eigenpro")).fit(Xtr, ytr),
+        lambda m: m.predict_batched(Xte, batch_size=PREDICT_BATCH))
+    st = b["out"].state()
+    mse_b = check_fit("b", b, N_TEST)
+    k1_b = b["fit_launches"]["kernel_block"]
+    log(f"[iter] (b) eigenpro in memory: fit {b['fit_s']:.2f} s, "
+        f"{st.iters} epochs of {per_epoch} batches of {m_rows} rows, deltas "
+        f"{[round(float(r), 8) for r in st.residuals]}; K1 launches in the "
+        f"fit {k1_b} (expected 3 + epochs x {per_epoch} = "
+        f"{3 + st.iters * per_epoch}); test MSE {mse_b:.4f} (ratio to the "
+        f"direct fit of (a) {mse_b / mse_direct:.4f})")
+    check(k1_b == 3 + st.iters * per_epoch,
+          f"(b) K1 launched {k1_b} times in the fit")
+    check(mse_b < var_f, f"(b) test MSE {mse_b:.4f} not below {var_f:.4f}")
+    out["b"] = dict(fit_s=b["fit_s"], predict_s=b["predict_s"],
+                    epochs=st.iters, batch_rows=m_rows,
+                    batch_launches=st.iters * per_epoch,
+                    deltas=[float(r) for r in st.residuals], test_mse=mse_b,
+                    launches=b["launches"], fit_launches=b["fit_launches"])
+    prof = _profile(lambda: SketchedKRR(cfg.replace(
+        solver="eigenpro")).fit(Xtr, ytr))
+    _profile_line("(b) eigenpro fit", prof, b["fit_s"])
+    out["b"]["profile"] = prof
+    del b
+
+    # (c) the streamed Theorem-4 pass alone, its peak memory and its
+    # scores against the hopper pass on the same landmarks; then a
+    # streaming fit
+    X = torch.as_tensor(Xtr, device="cuda")
+    lam_s = cfg.lam * cfg.eps
+    idx = draw_landmarks(torch.Generator().manual_seed(5),
+                         torch.full((N_TRAIN,), 1.0 / N_TRAIN), P)
+    stream_ops = ops_for(cfg.kernel, "streaming", device="cuda",
+                         block_rows=cfg.block_rows)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    streamed = fast_ridge_leverage(cfg.kernel, X, lam_s, P, idx=idx,
+                                   ops=stream_ops)
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    dense = fast_ridge_leverage(cfg.kernel, X, lam_s, P, idx=idx,
+                                ops=ops_for(cfg.kernel, "hopper",
+                                            device="cuda"))
+
+    def max_rel(a, b):
+        return float(((a.double() - b.double()).abs() / b.abs()).max())
+
+    rel = max_rel(streamed.scores, dense.scores)
+    # both routes against the scores of float64 copies (the plain dense
+    # pass), on the same landmarks
+    exact = fast_ridge_leverage(cfg.kernel, X.double(), lam_s, P, idx=idx,
+                                ops=ops_for(cfg.kernel, "torch",
+                                            device="cuda")).scores
+    rel_exact = {"streamed": max_rel(streamed.scores, exact),
+                 "hopper": max_rel(dense.scores, exact)}
+    del exact
+    tiles = math.ceil(N_TRAIN / cfg.block_rows)
+    c = _run_path("c", lambda: SketchedKRR(cfg.replace(
+        backend="streaming")).fit(Xtr, ytr),
+        lambda m: m.predict_batched(Xte, batch_size=PREDICT_BATCH))
+    mse_c = check_fit("c", c, N_TEST)
+    k1_c = c["fit_launches"]["kernel_block"]
+    log(f"[iter] (c) streamed score pass (block_rows {cfg.block_rows}, "
+        f"{tiles} tiles a pass): {pass_s:.3f} s, peak device memory "
+        f"{peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held; scores "
+        f"vs the hopper pass on the same landmarks: max rel "
+        f"{rel:.3e} (tolerance {ITER_SCORES_TOL:g}); each against float64 "
+        f"scores: streamed {rel_exact['streamed']:.3e}, hopper "
+        f"{rel_exact['hopper']:.3e}; row_sq finite "
+        f"{bool(torch.isfinite(streamed.row_sq).all())}")
+    log(f"[iter] (c) streaming fit (nystrom): {c['fit_s']:.2f} s, K1 "
+        f"launches in the fit {k1_c} (expected 1 + 3 x {tiles} = "
+        f"{1 + 3 * tiles}), rls_scores {c['fit_launches']['rls_scores']}, "
+        f"after predict {c['launches']['kernel_block']}; test MSE "
+        f"{mse_c:.4f}")
+    check(streamed.B is None, "(c) the streamed pass formed B")
+    check(peak < 1e9, f"(c) streamed pass peak {peak / 1e9:.3f} GB >= 1 GB")
+    check(rel <= ITER_SCORES_TOL, f"(c) scores {rel:.3e} > "
+          f"{ITER_SCORES_TOL:g}")
+    check(k1_c == 1 + 3 * tiles and c["fit_launches"]["rls_scores"] == 0,
+          f"(c) launches in the fit {c['fit_launches']}")
+    check(mse_c < var_f, f"(c) test MSE {mse_c:.4f} not below {var_f:.4f}")
+    out["c"] = dict(pass_s=pass_s, peak_bytes=peak, held_bytes=held,
+                    tile_launches=k1_c - 1,
+                    scores_max_rel=rel, scores_max_rel_to_f64=rel_exact,
+                    fit_s=c["fit_s"],
+                    predict_s=c["predict_s"], test_mse=mse_c,
+                    launches=c["launches"], fit_launches=c["fit_launches"])
+    del streamed, dense, X
+    prof = _profile(lambda: SketchedKRR(cfg.replace(
+        backend="streaming")).fit(Xtr, ytr))
+    _profile_line("(c) streaming fit", prof, c["fit_s"])
+    out["c"]["profile"] = prof
+    del c
+
+    # (d) falkon_pcg out of core on the RCV1-shaped rows, against the
+    # chunked nystrom_regularized fit with the same draws
+    rc = _rcv1(keep)
+    scfg = SketchConfig(RBFKernel(RCV1_BANDWIDTH), p=P, lam=LAM,
+                        chunk_rows=CHUNK_ROWS, solver="falkon_pcg",
+                        precision=Precision(**SPARSE_PRECISION))
+    d = _run_path("d", lambda: SketchedKRR(scfg).fit(rc["train"], rc["y"]),
+                  lambda m: m.predict(rc["test"]))
+    mse_d = check_fit("d", d, RCV1_TEST)
+    ref_d = SketchedKRR(scfg.replace(solver="nystrom_regularized")).fit(
+        rc["train"], rc["y"], sample=d["out"].sample())
+    b_d, b_ref = d["out"].state().beta, ref_d.state().beta
+    rel_d = float(torch.linalg.norm(b_d - b_ref) / torch.linalg.norm(b_ref))
+    chunks = math.ceil(RCV1_TRAIN / CHUNK_ROWS)
+    k3_d = d["fit_launches"]["sparse_cross"]
+    log(f"[iter] (d) falkon_pcg out of core (RCV1 shape, chunk_rows "
+        f"{CHUNK_ROWS}): fit {d['fit_s']:.2f} s, {d['out'].state().iters} "
+        f"iterations; K3 launches in the fit {k3_d} (expected 3 x {chunks}), "
+        f"launches after predict {d['launches']}; beta vs the chunked "
+        f"nystrom_regularized beta with the same draws: {rel_d:.3e} "
+        f"(tolerance {ITER_BETA_TOL:g}); test MSE {mse_d:.4f} against "
+        f"var(f*) {float(torch.var(torch.as_tensor(rc['f_test']))):.4f}")
+    check(k3_d == 3 * chunks, f"(d) K3 launched {k3_d} times in the fit")
+    check(rel_d <= ITER_BETA_TOL, f"(d) beta {rel_d:.3e} > {ITER_BETA_TOL}")
+    out["d"] = dict(fit_s=d["fit_s"], predict_s=d["predict_s"],
+                    iters=d["out"].state().iters, beta_rel_to_direct=rel_d,
+                    test_mse=mse_d, launches=d["launches"],
+                    fit_launches=d["fit_launches"])
+    del ref_d
+    prof = _profile(lambda: SketchedKRR(scfg).fit(rc["train"], rc["y"]))
+    _profile_line("(d) falkon_pcg out-of-core fit", prof, d["fit_s"])
+    out["d"]["profile"] = prof
+    del d
+
+    # (e) eigenpro through fit(ArrayChunkSource): the end_pass protocol
+    src = _counting_source(Xtr, ytr, CHUNK_ROWS)
+    e = _run_path("e", lambda: SketchedKRR(cfg.replace(
+        solver="eigenpro")).fit(src),
+        lambda m: m.predict_batched(Xte, batch_size=PREDICT_BATCH))
+    mse_e = check_fit("e", e, N_TEST)
+    st = e["out"].state()
+    log(f"[iter] (e) eigenpro via fit(ArrayChunkSource, chunk_rows "
+        f"{CHUNK_ROWS}): fit {e['fit_s']:.2f} s, {src.passes} passes over "
+        f"the source, {st.iters} epochs, deltas "
+        f"{[round(float(r), 8) for r in st.residuals]}; launches in the fit "
+        f"{e['fit_launches']}; test MSE {mse_e:.4f}")
+    check(src.passes == 6 + st.iters,
+          f"(e) {src.passes} passes for {st.iters} epochs")
+    check(e["fit_launches"]["kernel_block"] > st.iters,
+          f"(e) K1 launched {e['fit_launches']['kernel_block']} times")
+    check(mse_e < var_f, f"(e) test MSE {mse_e:.4f} not below {var_f:.4f}")
+    out["e"] = dict(fit_s=e["fit_s"], predict_s=e["predict_s"],
+                    passes=src.passes, epochs=st.iters, test_mse=mse_e,
+                    launches=e["launches"], fit_launches=e["fit_launches"])
+    prof = _profile(lambda: SketchedKRR(cfg.replace(solver="eigenpro")).fit(
+        _counting_source(Xtr, ytr, CHUNK_ROWS)))
+    _profile_line("(e) eigenpro out-of-core fit", prof, e["fit_s"])
+    out["e"]["profile"] = prof
+    del e
+
+    # (f) hopper against torch at n = 20,000 with the same draws (and, for
+    # eigenpro, the same seed: the same subsample). Predictions are held at
+    # the test rows and at the training rows; β wherever the float32
+    # system determines it (ITER_FREE_BETA)
+    Xp, yp, Xq = Xtr[:N_PARITY], ytr[:N_PARITY], Xte[:N_PARITY_TEST]
+    idx = draw_landmarks(torch.Generator().manual_seed(3),
+                         torch.full((N_PARITY,), 1.0 / N_PARITY), P)
+    tols = dict(PARITY_TOL, train_predictions=PARITY_TOL["predictions"],
+                scores=ITER_PARITY_SCORES_TOL)
+    out["f"] = {}
+    for label, kw in [("falkon_pcg", dict(solver="falkon_pcg")),
+                      ("eigenpro", dict(solver="eigenpro")),
+                      ("streaming", dict(backend="streaming"))]:
+        c1 = cfg.replace(**kw)
+        fast = c1.replace(backend=kw.get("backend", "hopper"))
+        hop = SketchedKRR(fast).fit(Xp, yp, score_landmarks=idx)
+        plain = SketchedKRR(c1.replace(backend="torch")).fit(
+            Xp, yp, score_landmarks=idx, sample=hop.sample())
+        errs = {}
+        for key, rows in (("predictions", Xq), ("train_predictions", Xp)):
+            y_h, y_t = hop.predict(rows), plain.predict(rows)
+            errs[key] = float((y_h - y_t).abs().max() / y_t.abs().max())
+        b_h, b_t = hop.state().beta, plain.state().beta
+        errs["beta"] = float(torch.linalg.norm(b_h - b_t)
+                             / torch.linalg.norm(b_t))
+        if label == "streaming":
+            s_h, s_t = hop.scores(), plain.scores()
+            errs["scores"] = float(((s_h - s_t).abs() / s_t.abs()).max())
+        held = [k for k in errs if (label, k) not in ITER_FREE_BETA]
+        iters = getattr(hop.state(), "iters", None)
+        log(f"[iter] (f) {label} {fast.backend} vs torch at n={N_PARITY}: "
+            + ", ".join(f"{k} {v:.3e} (tolerance {tols[k]:g})" if k in held
+                        else f"{k} {v:.3e} (logged, not held)"
+                        for k, v in errs.items())
+            + ("" if iters is None else
+               f"; iterations {iters} vs {plain.state().iters}"))
+        for k in held:
+            check(errs[k] <= tols[k], f"(f) {label} {k}: {errs[k]:.3e} > "
+                  f"{tols[k]:g}")
+        out["f"][label] = errs
 
 def _lm_config():
     import dataclasses
@@ -1222,6 +1593,32 @@ def _k1_w_bound(Z) -> tuple[float, str, float, float]:
     return bound, by, work / dense, mma / dense
 
 
+def _k1_shape_row(label: str, X, Z, launches, reps: int) -> dict:
+    """K1's rbf row at X's shape, float32, with its linear kind beside
+    torch.matmul(X, Z.T) on the same tensors."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rbf_block import kernel_block
+    (n, d), p = X.shape, Z.shape[0]
+    err = float((kernel_block(X, Z, kind="rbf", bandwidth=BANDWIDTH)
+                 - ref.rbf_block_ref(X, Z, BANDWIDTH)).abs().max())
+    ms = cuda_ms(lambda: kernel_block(X, Z, kind="rbf", bandwidth=BANDWIDTH),
+                 reps=reps)
+    plain = cuda_ms(lambda: ref.rbf_block_ref(X, Z, BANDWIDTH), reps=reps)
+    lin = cuda_ms(lambda: kernel_block(X, Z, kind="linear"), reps=reps)
+    mm = cuda_ms(lambda: torch.matmul(X, Z.T), reps=reps)
+    bound, by = _k1_bound(n, p, d, "float32")
+    log(f"[summary] K1 rbf {label} (n,p,d)=({n},{p},{d}) f32: kernel "
+        f"{1e3 * ms:.1f} µs, plain {1e3 * plain:.1f} µs, bound "
+        f"{1e3 * bound:.2f} µs ({by}); linear kind {1e3 * lin:.1f} µs, "
+        f"torch.matmul(X, Z.T) {1e3 * mm:.1f} µs; max|Δ| {err:.3e}, "
+        f"launches on its path {launches}")
+    check(err <= K1_TOL["float32"], f"K1 {label}: {err:.3e}")
+    return _k1_row(label, launches, err, ms, plain, bound, by, None,
+                   linear_ms=lin, linear_library_ms=mm,
+                   library_fn="torch.matmul(X, Z.T) against the linear kind")
+
+
 def _summary_k1(res: dict, keep: dict) -> list[dict]:
     """K1's rows at the three shapes that matter: the main path's fit
     (rbf; the linear kind beside torch.matmul(X, Z.T)), one predict batch
@@ -1235,7 +1632,7 @@ def _summary_k1(res: dict, keep: dict) -> list[dict]:
         X = torch.as_tensor(keep["Xtr"], device="cuda")
         Z = keep["Z"].contiguous()
     else:       # the MSD-shaped rows, and landmarks drawn uniformly
-        X = torch.as_tensor(_msd_data()[0], device="cuda")
+        X = torch.as_tensor(_msd(keep)[0], device="cuda")
         Z = X[torch.randperm(N_TRAIN, generator=torch.Generator()
                              .manual_seed(6))[:P].cuda()].contiguous()
     n, d = X.shape
@@ -1263,26 +1660,25 @@ def _summary_k1(res: dict, keep: dict) -> list[dict]:
         f"torch.matmul(X, Z.T) {mm_ms:.3f} ms")
     check(err1 <= K1_TOL["float32"], f"K1 at main shape: {err1:.3e}")
     res["k1_linear_vs_matmul_ms"] = dict(kernel=lin_ms, matmul=mm_ms)
+    # phase iter's launches at this shape: falkon_pcg's score pass, Csᵀy
+    # and one gram_matvec an iteration
+    iter_launches = (res["iter"]["a"]["fit_launches"]["kernel_block"] - 1
+                     if "iter" in res else None)
     rows.append(_k1_row("fit", fit_launches, err1, ms1, plain1, b1, by1,
                         None, linear_ms=lin_ms, linear_library_ms=mm_ms,
                         library_fn="torch.matmul(X, Z.T) against the "
-                                   "linear kind"))
-    # one predict batch
-    Xb = X[:PREDICT_BATCH]
-    nb = Xb.shape[0]
-    Cb = kernel_block(Xb, Z, kind="rbf", bandwidth=BANDWIDTH)
-    errb = float((Cb - ref.rbf_block_ref(Xb, Z, BANDWIDTH)).abs().max())
-    msb = cuda_ms(lambda: kernel_block(Xb, Z, kind="rbf",
-                                       bandwidth=BANDWIDTH), reps=100)
-    plainb = cuda_ms(lambda: ref.rbf_block_ref(Xb, Z, BANDWIDTH), reps=100)
-    bb, byb = _k1_bound(nb, p, d, "float32")
-    log(f"[summary] K1 rbf predict batch (n,p,d)=({nb},{p},{d}) f32: "
-        f"kernel {1e3 * msb:.1f} µs, plain {1e3 * plainb:.1f} µs, bound "
-        f"{1e3 * bb:.2f} µs ({byb}), max|Δ| {errb:.3e}, launches in "
-        f"predict_batched {predict_launches}")
-    check(errb <= K1_TOL["float32"], f"K1 predict batch: {errb:.3e}")
-    rows.append(_k1_row("predict", predict_launches, errb, msb, plainb, bb,
-                        byb, None))
+                                   "linear kind",
+                        iter_falkon_launches=iter_launches))
+    # a predict batch, and the iterative paths' shapes: EigenPro's
+    # mini-batch and the streaming tile (phase iter)
+    it = res.get("iter", {})
+    for label, rows_n, launches, reps in [
+            ("predict", PREDICT_BATCH, predict_launches, 100),
+            ("eigenpro batch", 2048, it.get("b", {}).get("batch_launches"),
+             50),
+            ("streaming tile", 4096, it.get("c", {}).get("tile_launches"),
+             50)]:
+        rows.append(_k1_shape_row(label, X[:rows_n], Z, launches, reps))
     # W = k(Z, Z) of the sparse path
     _, Zs = _full_chunk(keep)
     Zs = keep.get("sparse_Z", Zs).contiguous()
@@ -1442,6 +1838,9 @@ def _summary_sparse(res: dict, keep: dict) -> dict:
                 source="src/repro_torch/kernels/csrc/sparse_cross.cu",
                 replaces="src/repro/kernels/sparse_block.py:149",
                 launches=_launches(res, "sparse", "sparse_cross"),
+                # phase iter (d): falkon_pcg out of core
+                iter_falkon_launches=res.get("iter", {}).get("d", {}).get(
+                    "fit_launches", {}).get("sparse_cross"),
                 max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=bw3,
                 bound_by=byw3, library_ms=lib3,
                 # bound_ms counts the work this chunk's data needs; the
@@ -1508,7 +1907,7 @@ def phase_summary(res: dict, keep: dict) -> None:
     for name in ("kernel_block", "sparse_cross"):
         for line in res.get("ptxas", {}).get(name, []):
             log(f"[summary] ptxas {name}: {line}")
-    if "Xtr" in keep or "k1" in keep:
+    if "Xtr" in keep or "k1" in keep or "iter" in res:
         rows.extend(_summary_k1(res, keep))
     if "Xtr" in keep or "k2" in keep:
         rows.append(_summary_k2(res))
@@ -1618,6 +2017,8 @@ def main() -> int:
             phase_parity(res, keep)
         elif name == "sparse":
             phase_sparse(res, keep)
+        elif name == "iter":
+            phase_iter(res, keep)
         elif name == "lm":
             phase_lm(res, keep)
         elif name == "summary":

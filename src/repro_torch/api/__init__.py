@@ -9,11 +9,14 @@
 
 Samplers: uniform, diagonal, rls_exact, rls_fast (the default: Theorem-4
 fast scores, then the Theorem-3 leverage draw). Solvers: exact, nystrom
-(the default), nystrom_regularized. Backends: hopper (the CUDA kernels),
-torch (plain PyTorch), auto (hopper on CUDA, torch on the CPU).
+(the default), nystrom_regularized, and the iterative falkon_pcg and
+eigenpro. Backends: hopper (the CUDA kernels), torch (plain PyTorch),
+streaming (hopper's tiles over ``block_rows``-row blocks), auto (hopper on
+CUDA, torch on the CPU).
 
-Out of core: ``fit(source)`` with a chunk source, ``fit(X_csr, y)`` with
-CSR rows, ``chunk_rows=`` on the config, ``partial_fit``/``finalize``.
+Out of core: ``fit(source)`` with a chunk source (eigenpro streams it once
+per epoch), ``fit(X_csr, y)`` with CSR rows, ``chunk_rows=`` on the
+config, ``partial_fit``/``finalize``.
 """
 from ..core.kernels import (BernoulliKernel, LinearKernel, PolynomialKernel,
                             RBFKernel)

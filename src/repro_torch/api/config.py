@@ -3,9 +3,10 @@
 One ``SketchConfig`` fully determines a fit: the kernel, the sketch size
 ``p`` (Theorem 3), the score-pass landmark count ``p_scores`` (Theorem 4),
 the regularization λ, the leverage approximation level ε, the footnote-4
-Nyström regularizer γ, the seed, the sampler/solver/backend registry names
-and the device. Samplers, solvers and backends of the reference that are
-not ported yet are refused here, with the ROADMAP item that ports them.
+Nyström regularizer γ, the seed, the sampler/solver/backend registry names,
+the device, and the knobs of the streaming executor and the iterative
+solvers. Samplers, solvers and backends of the reference that are not
+ported yet are refused here, with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -14,15 +15,15 @@ from typing import Any
 
 import torch
 
-from ..core.backends import BACKENDS
+from ..core.backends import BACKENDS, DEFAULT_BLOCK_ROWS
 from ..core.kernels import Kernel
 from ..core.precision import Precision
 
 # reference registry entries still to port → their ROADMAP item
 NOT_PORTED = {
     "sampler": {"bless": 7, "recursive_rls": 7},
-    "solver": {"eigenpro": 6, "falkon_pcg": 6, "dnc": 7, "distributed": 9},
-    "backend": {"streaming": 5, "sharded": 9, "xla": None, "pallas": None},
+    "solver": {"dnc": 7, "distributed": 9},
+    "backend": {"sharded": 9, "xla": None, "pallas": None},
 }
 
 
@@ -33,7 +34,8 @@ def refuse_unported(kind: str, name: str) -> None:
     item = NOT_PORTED[kind][name]
     if item is None:
         raise ValueError(f"{kind} {name!r} is a JAX backend; the port's "
-                         "backends are 'torch', 'hopper' and 'auto'")
+                         "backends are 'torch', 'hopper', 'streaming' and "
+                         "'auto'")
     raise ValueError(f"{kind} {name!r} is not ported to repro_torch yet "
                      f"(ROADMAP item {item})")
 
@@ -53,8 +55,16 @@ class SketchConfig:
                  inputs are cast to its ``data_dtype`` at fit/predict time.
       p_scores:  landmark count for the Theorem-4 score pass (``None`` → p).
       sampler:   "uniform" | "diagonal" | "rls_exact" | "rls_fast".
-      solver:    "exact" | "nystrom" | "nystrom_regularized".
-      backend:   "hopper" | "torch" | "auto" (CUDA → hopper, CPU → torch).
+      solver:    "exact" | "nystrom" | "nystrom_regularized" | "eigenpro"
+                 | "falkon_pcg" (the last two iterate on the regularized
+                 sketch's landmark-space system, ``core/eigenpro.py`` and
+                 ``core/distributed.py``).
+      backend:   "hopper" | "torch" | "streaming" | "auto" (CUDA → hopper,
+                 CPU → torch). "streaming" takes its tiles from hopper in
+                 ``block_rows``-row blocks, so no compute intermediate is
+                 larger than O(block_rows·p) and its score pass never forms
+                 C or B.
+      block_rows: row tile of the streaming executor.
       jitter:    relative jitter for the p×p Cholesky factorizations.
       device:    "cuda" (the default; raises when no GPU is present) or
                  "cpu".
@@ -65,6 +75,16 @@ class SketchConfig:
                  ``chunk_rows=r`` is bit-identical to ``fit(source)`` with
                  any source at the same r. CSR input always takes the
                  driver, as one whole-matrix chunk when this is unset.
+      epochs:    eigenpro: the most optimization epochs (SGD, then polish).
+      batch_budget_mb: eigenpro: device-memory budget of one mini-batch,
+                 which sets its rows (``core.eigenpro.auto_batch_rows``).
+      solver_iters: falkon_pcg: the most PCG iterations.
+      solver_tol: falkon_pcg: stop at this max-over-columns relative
+                 residual; eigenpro: stop when a polish epoch moves β by
+                 less than this, relatively.
+      precond_k: eigenpro: eigendirections deflated (None → min(p − 1, 64)).
+      precond_subsample: eigenpro: rows of the covariance estimate behind
+                 the preconditioner (None → min(n, 4000)).
     """
 
     kernel: Kernel
@@ -81,6 +101,13 @@ class SketchConfig:
     jitter: float = 1e-10
     device: str = "cuda"
     chunk_rows: int | None = None
+    block_rows: int = DEFAULT_BLOCK_ROWS
+    epochs: int = 20
+    batch_budget_mb: float = 64.0
+    solver_iters: int = 100
+    solver_tol: float = 1e-6
+    precond_k: int | None = None
+    precond_subsample: int | None = None
 
     def __post_init__(self) -> None:
         if self.p <= 0:
@@ -91,9 +118,29 @@ class SketchConfig:
             raise ValueError(f"eps must be positive, got {self.eps}")
         if self.p_scores is not None and self.p_scores <= 0:
             raise ValueError(f"p_scores must be positive, got {self.p_scores}")
+        if self.block_rows <= 0:
+            raise ValueError(
+                f"block_rows must be positive, got {self.block_rows}")
         if self.chunk_rows is not None and self.chunk_rows <= 0:
             raise ValueError(
                 f"chunk_rows must be positive, got {self.chunk_rows}")
+        if self.epochs <= 0:
+            raise ValueError(f"epochs must be positive, got {self.epochs}")
+        if self.batch_budget_mb <= 0:
+            raise ValueError(f"batch_budget_mb must be positive, got "
+                             f"{self.batch_budget_mb}")
+        if self.solver_iters <= 0:
+            raise ValueError(
+                f"solver_iters must be positive, got {self.solver_iters}")
+        if self.solver_tol <= 0:
+            raise ValueError(
+                f"solver_tol must be positive, got {self.solver_tol}")
+        if self.precond_k is not None and self.precond_k <= 0:
+            raise ValueError(
+                f"precond_k must be positive, got {self.precond_k}")
+        if self.precond_subsample is not None and self.precond_subsample <= 0:
+            raise ValueError(f"precond_subsample must be positive, got "
+                             f"{self.precond_subsample}")
         refuse_unported("sampler", self.sampler)
         refuse_unported("solver", self.solver)
         refuse_unported("backend", self.backend)

@@ -4,7 +4,8 @@
     model = SketchedKRR(config).fit(X, y)     # on the card by default
     y_hat = model.predict(X_test)             # out-of-sample Nyström extension
     l_hat = model.scores()                    # sampler's leverage estimates
-    report = model.risk(f_star, noise_std)    # closed-form eq.-(4) risk
+    report = model.risk(f_star, noise_std)    # eq.-(4) risk (empirical for
+                                              # the iterative solvers)
 
 ``fit`` seeds its CPU ``torch.Generator`` streams from ``config.seed``, so a
 fit is a pure function of (config, X, y) and draws the same landmarks on
@@ -20,7 +21,9 @@ matrix, and ``chunk_rows`` on the config for in-memory arrays hold
 O(chunk_rows·p) on the device; ``partial_fit(X, y)``/``finalize()``
 accumulate the same statistics incrementally, freezing the landmarks after
 the first chunk. Such models predict like in-memory ones; ``risk`` and
-``predict_train`` need the in-memory factor and say so.
+``predict_train`` need the in-memory factor or training set and say so.
+``eigenpro`` streams a source once per epoch (``fit(source)``), which
+``partial_fit`` cannot do: its ``finalize`` raises.
 
 The fitted model of the landmark solvers is the O(p) ``ServingState`` —
 β, the landmark rows Z and the sketch column weights — which
@@ -37,7 +40,7 @@ import torch
 from torch import Tensor
 
 from ..core.backends import KernelOps, ops_for_config
-from ..core.krr import RiskReport
+from ..core.krr import RiskReport, empirical_risk
 from ..core.nystrom import ColumnSample
 from ..data.chunks import (ArrayChunkSource, ChunkSource,
                            as_chunk_source, to_host)
@@ -366,10 +369,18 @@ class SketchedKRR:
         return ops_for_config(self.config)
 
     def risk(self, f_star, noise_std: float) -> RiskReport:
-        """Closed-form eq.-(4) risk of the fitted model."""
+        """Closed-form eq.-(4) risk when the solver has one; otherwise the
+        empirical risk (1/n)‖f̂ − f*‖² at the training points, with NaN
+        bias and variance."""
         self._require_fit()
-        return self._solver.risk(self.config, self._state,
-                                 self._cast(f_star), noise_std)
+        f_star = self._cast(f_star)
+        report = self._solver.risk(self.config, self._state, f_star,
+                                   noise_std)
+        if report is None:
+            r = empirical_risk(self.predict_train(), f_star)
+            nan = torch.full_like(r, float("nan"))
+            report = RiskReport(r, nan, nan)
+        return report
 
     def __repr__(self) -> str:
         fitted = "fitted" if self._state is not None else "unfitted"

@@ -12,7 +12,9 @@ one chunk at a time and never holds X, C or B whole:
   pass 3  chunked CᵀC       → ``score_pass_chunk_gram`` per chunk
   pass 4  chunked scores    → ``score_pass_chunk_scores`` per chunk →
                               Theorem-3 column draw, gather of the final Z
-  pass 5  solver statistics → the solver's ``ChunkAccumulator``
+  pass 5  solver statistics → the solver's ``ChunkAccumulator``; an
+                              accumulator with ``end_pass`` (``eigenpro``)
+                              asks for further passes, one per epoch
 
 Sources stay on the host; each chunk moves to the configured device in the
 data dtype, and its kernel blocks come from the configured ``KernelOps``
@@ -50,9 +52,9 @@ from .samplers import streams
 CHUNKABLE_SAMPLERS = ("uniform", "diagonal", "rls_fast")
 
 # solvers whose accumulators touch X only through kernel blocks (O(p²)
-# statistics) — the ones CSR chunks can feed; ``exact`` buffers raw rows.
-# The reference's third, falkon_pcg, is ROADMAP item 6
-SPARSE_CHUNK_SOLVERS = ("nystrom", "nystrom_regularized")
+# statistics) — the ones CSR chunks can feed; ``exact`` and ``eigenpro``
+# buffer raw rows
+SPARSE_CHUNK_SOLVERS = ("nystrom", "nystrom_regularized", "falkon_pcg")
 
 
 def require_sparse_chunk_solver(config: SketchConfig, sparse: bool) -> None:
@@ -181,12 +183,20 @@ def fit_from_source(config: SketchConfig, solver, source: ChunkSource, *,
                     ) -> ChunkedFitResult:
     """One out-of-core fit: sample → gather landmarks → accumulate →
     finalize. ``solver`` is the resolved registry entry (it must expose
-    ``begin_chunked``); ``sample``/``score_landmarks`` inject draws."""
+    ``begin_chunked``); ``sample``/``score_landmarks`` inject draws.
+
+    An accumulator with ``end_pass(n) -> bool`` (the iterative solvers'
+    multi-epoch protocol) is asked after every pass whether to stream the
+    source again: each epoch calls ``source.chunks()`` anew, so a
+    ``GeneratorChunkSource`` factory is called once per epoch and the data
+    is never held whole. A pass that yields no rows, or another row count
+    than the sampling passes saw, fails and names its epoch."""
     begin = getattr(solver, "begin_chunked", None)
     if begin is None:
         raise ValueError(
             f"solver {config.solver!r} does not support out-of-core "
-            "fitting; use one of: exact, nystrom, nystrom_regularized")
+            "fitting; use one of: exact, nystrom, nystrom_regularized, "
+            "eigenpro, falkon_pcg")
     if not source.has_targets:
         raise ValueError("fitting needs a source with targets: give the "
                          "source a y array / path / block component")
@@ -201,19 +211,35 @@ def fit_from_source(config: SketchConfig, solver, source: ChunkSource, *,
     else:
         sample = None
     acc = begin(config, landmarks, sample)
-    n_seen = 0
-    for chunk in source.chunks():
-        acc.add(_cast_chunk(config, chunk.X), _cast_chunk(config, chunk.y),
-                chunk.n_valid)
-        n_seen += chunk.n_valid
-    if n_seen == 0:
-        raise ValueError("chunk source yielded no rows")
-    if n_expected is not None and n_seen != n_expected:
-        # a one-shot iterator wrapped as a factory, or a cursor that does
-        # not replay, would corrupt a multi-pass fit silently
-        raise ValueError(
-            f"chunk source is not re-iterable: the sampling passes saw "
-            f"{n_expected} rows but the solver pass saw {n_seen}; each "
-            "chunks() call must replay the same rows (wrap the construction "
-            "of a generator, not the iterator)")
+    end_pass = getattr(acc, "end_pass", None)
+    epoch = 0
+    while True:
+        epoch += 1
+        n_seen = 0
+        for chunk in source.chunks():
+            acc.add(_cast_chunk(config, chunk.X),
+                    _cast_chunk(config, chunk.y), chunk.n_valid)
+            n_seen += chunk.n_valid
+        if n_seen == 0:
+            if epoch == 1:
+                raise ValueError("chunk source yielded no rows")
+            raise ValueError(
+                f"chunk source went dry on epoch {epoch}: multi-epoch "
+                "streaming calls chunks() once per epoch, but this pass "
+                "yielded no rows — a one-shot iterator was handed over "
+                "instead of a factory (wrap the construction: "
+                "GeneratorChunkSource(lambda: make_blocks(), ...))")
+        if n_expected is not None and n_seen != n_expected:
+            # a one-shot iterator wrapped as a factory, or a cursor that
+            # does not replay, would corrupt a multi-pass fit silently
+            prior = ("the sampling passes" if epoch == 1
+                     else "earlier passes")
+            raise ValueError(
+                f"chunk source is not re-iterable: {prior} saw "
+                f"{n_expected} rows but solver epoch {epoch} saw {n_seen}; "
+                "each chunks() call must replay the same rows (wrap the "
+                "construction of a generator, not the iterator)")
+        n_expected = n_seen
+        if end_pass is None or not end_pass(n_seen):
+            break
     return ChunkedFitResult(acc.finalize(n_seen), sample, scores, n_seen)

@@ -1,6 +1,6 @@
 """Core paper library: kernels, ridge-leverage scores, Nyström sketches, KRR."""
-from .backends import (BACKENDS, HopperOps, KernelOps, TorchOps,
-                       jittered_cholesky, ops_for, ops_for_config,
+from .backends import (BACKENDS, HopperOps, KernelOps, StreamingOps,
+                       TorchOps, jittered_cholesky, ops_for, ops_for_config,
                        resolve_backend)
 from .kernels import (BernoulliKernel, Kernel, LinearKernel,
                       PolynomialKernel, RBFKernel, gram_matrix,

@@ -25,6 +25,11 @@ Registered backends:
               or raise; on CPU tensors the same calls take the kernels'
               plain versions. Kernels without a kernel body (bernoulli)
               use the dense formula per block.
+  ``streaming`` ``hopper``'s tiles over ``block_rows``-row blocks of X, so
+              no compute intermediate is larger than O(block_rows·p):
+              ``matvec``/``rmatvec``/``gram_matvec`` and the Theorem-4
+              ``score_pass`` never form C or B. A CSR X is one direct
+              block (K3 is nnz-tiled already).
 
 ``backend="auto"`` resolves per device: CUDA → ``hopper``, CPU → ``torch``.
 
@@ -42,7 +47,9 @@ backend needs none) and ``cross``, ``score_pass_chunk_gram`` and
 The chunked Theorem-4 seam (``score_pass_dtypes``,
 ``score_pass_chunk_gram``, ``score_pass_chunk_scores`` and the p×p
 ``score_pass_core`` between its two passes) is what the out-of-core driver
-(``repro_torch.api.out_of_core``) runs per chunk.
+(``repro_torch.api.out_of_core``) runs per chunk. An executor with
+``streams_score_pass`` runs the whole pass itself (``score_pass``), and
+``fast_ridge_leverage`` then returns ‖B_i‖² in place of B.
 """
 from __future__ import annotations
 
@@ -56,6 +63,10 @@ from ..registry import Registry
 from .kernels import Kernel, LinearKernel, PolynomialKernel, RBFKernel
 from .precision import (Precision, floored_jitter,
                         storage_floored_jitter)
+
+
+# row tile of the streaming executor (SketchConfig.block_rows)
+DEFAULT_BLOCK_ROWS = 4096
 
 
 # ------------------------------------------------------- shared p×p algebra
@@ -181,6 +192,7 @@ class KernelOps:
     precision: Precision = Precision()
 
     name = "base"
+    streams_score_pass = False
 
     # ------------------------------------------------- precision plumbing
 
@@ -382,6 +394,175 @@ class HopperOps(KernelOps):
         return kops.rls_scores(B, M, acc_dtype=self._tile_acc(B.dtype, wd))
 
 
+# --------------------------------------------------------------- streaming
+
+@BACKENDS.register("streaming")
+@dataclasses.dataclass(frozen=True)
+class StreamingOps(HopperOps):
+    """Row-blocked execution: X in ``block_rows``-row tiles, so no compute
+    intermediate larger than O(block_rows·p) is ever live. ``matvec``,
+    ``rmatvec``, ``gram_matvec`` and the Theorem-4 ``score_pass`` never
+    form C or B; ``columns``/``cross`` still return the block asked for,
+    made tile by tile.
+
+    Every tile is ``HopperOps.cross``: K1 for dense tiles and K3 for CSR
+    ones on CUDA tensors, their plain versions on CPU tensors. (The
+    reference's streaming tile is the plain ``kernel.gram``.) Tiles are
+    row slices, so the last one is short rather than zero-padded and no
+    row needs a mask. A CSR X is one direct block: K3 is nnz-tiled, which
+    keeps the same working set without re-blocking the rows."""
+
+    block_rows: int = DEFAULT_BLOCK_ROWS
+
+    name = "streaming"
+    streams_score_pass = True
+
+    def _tile(self, X, Z: Tensor, *, prepared=None) -> Tensor:
+        """One kernel block through the hopper route."""
+        return HopperOps.cross(self, X, Z, prepared=prepared)
+
+    def _row_tiles(self, X: Tensor):
+        """``block_rows``-row slices of X, in order (one empty slice for an
+        empty X)."""
+        br = max(1, self.block_rows)
+        return (X[s:s + br] for s in range(0, max(X.shape[0], 1), br))
+
+    def _work(self, X: Tensor, v: Tensor) -> torch.dtype:
+        """The dtype the contractions against ``v`` run in."""
+        dt = torch.promote_types(X.dtype, v.dtype)
+        acc = self._accum(dt)
+        return dt if acc is None else acc
+
+    def cross(self, X_test, Z: Tensor, *, prepared=None) -> Tensor:
+        X_test, Z = self._cast_data(X_test, Z)
+        if isinstance(X_test, CsrMatrix):
+            return self._tile(X_test, Z, prepared=prepared)
+        return torch.cat([self._tile(xb, Z)
+                          for xb in self._row_tiles(X_test)])
+
+    def matvec(self, X, Z: Tensor, v: Tensor) -> Tensor:
+        if isinstance(X, CsrMatrix):
+            return KernelOps.matvec(self, X, Z, v)
+        X, Z = self._cast_data(X, Z)
+        work = self._work(X, v)
+        va = v.to(work)
+        # v may be (p,) or (p, k) (multi-output duals)
+        return torch.cat([self._tile(xb, Z).to(work) @ va
+                          for xb in self._row_tiles(X)])
+
+    def rmatvec(self, X, Z: Tensor, v: Tensor) -> Tensor:
+        if isinstance(X, CsrMatrix):
+            return KernelOps.rmatvec(self, X, Z, v)
+        X, Z = self._cast_data(X, Z)
+        work = self._work(X, v)
+        va = v.to(work)
+        out = torch.zeros((Z.shape[0],) + tuple(v.shape[1:]), dtype=work,
+                          device=Z.device)
+        br = max(1, self.block_rows)
+        for s, xb in zip(range(0, X.shape[0], br), self._row_tiles(X)):
+            out = out + self._tile(xb, Z).to(work).T @ va[s:s + br]
+        return out
+
+    def gram_matvec(self, X, Z: Tensor, v: Tensor) -> Tensor:
+        # one pass: each tile adds Kbᵀ(Kb v) to a p-sized accumulator
+        if isinstance(X, CsrMatrix):
+            return KernelOps.gram_matvec(self, X, Z, v)
+        X, Z = self._cast_data(X, Z)
+        work = self._work(X, v)
+        va = v.to(work)
+        out = torch.zeros((Z.shape[0],) + tuple(v.shape[1:]), dtype=work,
+                          device=Z.device)
+        for xb in self._row_tiles(X):
+            Kb = self._tile(xb, Z).to(work)
+            out = out + Kb.T @ (Kb @ va)
+        return out
+
+    def leverage_scores(self, B: Tensor, lam: float, n: int) -> Tensor:
+        acc = self._accum(B.dtype)
+        ad = B.dtype if acc is None else acc
+        p = B.shape[1]
+        G = torch.zeros((p, p), dtype=ad, device=B.device)
+        for bb in self._row_tiles(B):
+            bb = bb.to(ad)
+            G = G + bb.T @ bb
+        return self.scores_given_gram(B, G, lam, n)
+
+    def scores_given_gram(self, B: Tensor, G: Tensor, lam: float,
+                          n: int) -> Tensor:
+        # A = L Lᵀ once, then each row tile's scores through one triangular
+        # solve: no (n, p) intermediate
+        p = B.shape[1]
+        sd = self._solve(B.dtype)
+        wd = B.dtype if sd is None else sd
+        A = 0.5 * (G + G.T).to(wd) + n * lam * torch.eye(
+            p, dtype=wd, device=B.device)
+        Lchol = torch.linalg.cholesky(A)
+        outs = []
+        for bb in self._row_tiles(B):
+            V = torch.linalg.solve_triangular(Lchol, bb.T.to(wd), upper=False)
+            outs.append(torch.sum(V * V, dim=0).to(B.dtype))
+        return torch.cat(outs)
+
+    # the chunk-seam bodies get rows that are blocked already (a chunk of
+    # the out-of-core driver), so they take one tile each
+
+    def score_pass_chunk_gram(self, xb, mask: Tensor, Z: Tensor,
+                              accum_dtype, *, prepared=None) -> Tensor:
+        Cb = (self._tile(xb, Z, prepared=prepared)
+              * mask[:, None]).to(accum_dtype)
+        return Cb.T @ Cb
+
+    def score_pass_chunk_scores(self, xb, Z: Tensor, Lc: Tensor, La: Tensor,
+                                *, prepared=None) -> tuple[Tensor, Tensor]:
+        Cb = self._tile(xb, Z, prepared=prepared)
+        Bt = torch.linalg.solve_triangular(Lc, Cb.T.to(Lc.dtype), upper=False)
+        V = torch.linalg.solve_triangular(La, Bt, upper=False)
+        return (torch.sum(V * V, dim=0).to(Cb.dtype),
+                torch.sum(Bt * Bt, dim=0).to(Cb.dtype))
+
+    def score_pass(self, X, idx: Tensor, lam: float,
+                   jitter: float) -> tuple[Tensor, Tensor]:
+        """Theorem-4 scores in two streamed passes; C and B never exist.
+
+        Pass 1 accumulates CᵀC tile by tile (``score_pass_chunk_gram``),
+        giving BᵀB = L⁻¹(CᵀC)L⁻ᵀ with L the jittered Cholesky of the
+        landmark overlap W (``score_pass_core``). Pass 2 recomputes each
+        tile of C and reads its scores and ‖B_i‖² through two triangular
+        solves (``score_pass_chunk_scores``). Peak intermediate:
+        O(block_rows·p + p²) for any n. The out-of-core driver runs the
+        same seam over a chunk source.
+
+        W is factored by ``landmark_cholesky``, as the chunked pass does:
+        the reference's factorization, with the port's R1 rescue when it
+        fails. CᵀC accumulates in ``accum_dtype`` and the p×p solves run in
+        ``solve_dtype`` under a non-default policy.
+
+        Returns (scores, row_sq) with row_sq_i = ‖B_i‖²."""
+        (X,) = self._cast_data(X)
+        n = X.shape[0]
+        Z = X[idx]
+        W = self._tile(Z, Z)                          # (p, p), small
+        ad, wd = self.score_pass_dtypes(W.dtype)
+        Lc = landmark_cholesky(W, jitter, solve_dtype=wd)
+        if isinstance(X, CsrMatrix):
+            # one whole block; an in-memory CsrMatrix has no padded rows
+            prep = self.prepare_sparse(Z)
+            mask = torch.ones((n,), dtype=W.dtype, device=W.device)
+            CtC = self.score_pass_chunk_gram(X, mask, Z, ad, prepared=prep)
+            La = score_pass_core(Lc, CtC, lam, n)
+            return self.score_pass_chunk_scores(X, Z, Lc, La, prepared=prep)
+        p = Z.shape[0]
+        CtC = torch.zeros((p, p), dtype=ad, device=W.device)
+        for xb in self._row_tiles(X):
+            Cb = self._tile(xb, Z).to(ad)
+            CtC = CtC + Cb.T @ Cb
+        La = score_pass_core(Lc, CtC, lam, n)
+        parts = [self.score_pass_chunk_scores(xb, Z, Lc, La)
+                 for xb in self._row_tiles(X)]
+        return (torch.cat([s for s, _ in parts]),
+                torch.cat([r for _, r in parts]))
+
+
 # -------------------------------------------------------------- resolution
 
 def resolve_backend(name: str = "auto",
@@ -396,14 +577,19 @@ def resolve_backend(name: str = "auto",
 
 def ops_for(kernel: Kernel, backend: str = "auto", *,
             device: str | torch.device = "cuda",
-            precision: Precision = Precision()) -> KernelOps:
-    """Construct the ``KernelOps`` executor for a kernel + backend name."""
-    return BACKENDS.get(resolve_backend(backend, device))(
-        kernel=kernel, precision=precision)
+            precision: Precision = Precision(),
+            block_rows: int = DEFAULT_BLOCK_ROWS) -> KernelOps:
+    """Construct the ``KernelOps`` executor for a kernel + backend name;
+    ``block_rows`` reaches the executors that tile rows (``streaming``)."""
+    cls = BACKENDS.get(resolve_backend(backend, device))
+    kw = dict(kernel=kernel, precision=precision)
+    if any(f.name == "block_rows" for f in dataclasses.fields(cls)):
+        kw["block_rows"] = block_rows
+    return cls(**kw)
 
 
 def ops_for_config(config) -> KernelOps:
     """Executor for a ``SketchConfig`` (``kernel``/``backend``/``device``/
-    ``precision``)."""
+    ``precision``/``block_rows``)."""
     return ops_for(config.kernel, config.backend, device=config.device,
-                   precision=config.precision)
+                   precision=config.precision, block_rows=config.block_rows)

@@ -73,8 +73,10 @@ def theorem4_sample_size(trace_K: float, n: int, lam: float, eps: float,
 class FastLeverageResult(NamedTuple):
     scores: Tensor          # l̃_i, shape (n,)
     landmarks: Tensor       # sampled indices, shape (p,)
-    B: Tensor               # (n, p) factor with B Bᵀ = C W† Cᵀ
+    B: Tensor | None        # (n, p) factor with B Bᵀ = C W† Cᵀ; None when
+                            # the executor streams the pass (never formed)
     d_eff_estimate: Tensor
+    row_sq: Tensor | None = None   # ‖B_i‖², (n,), when B is None
 
 
 def _nystrom_factor(C: Tensor, W: Tensor, jitter: float, *,
@@ -121,7 +123,9 @@ def fast_ridge_leverage(
     Samples p landmarks with the Theorem-4 distribution p_i = K_ii / Tr(K)
     (or ``probs``) from ``gen`` — or takes them from ``idx``, which lets a
     test inject another implementation's draw. ``ops`` selects the kernel
-    backend (``None`` → ``auto`` for X's device).
+    backend (``None`` → ``auto`` for X's device). An executor that streams
+    the score pass (``streaming``) never forms C or B: the result then
+    carries ``B=None`` and the ‖B_i‖² rows in ``row_sq``.
     """
     if ops is None:
         ops = ops_for(kernel, device=X.device)
@@ -132,6 +136,10 @@ def fast_ridge_leverage(
             probs = diag / torch.sum(diag)
         idx = draw_landmarks(gen, probs, p, replace)
     idx = idx.to(X.device)
+    if getattr(ops, "streams_score_pass", False):
+        scores, row_sq = ops.score_pass(X, idx, lam, jitter)
+        return FastLeverageResult(scores, idx, None, torch.sum(scores),
+                                  row_sq)
     C = ops.columns(X, idx)                     # (n, p): only p columns of K
     pr = getattr(ops, "precision", None) or Precision()
     B = _nystrom_factor(C, C[idx, :], jitter,

@@ -17,7 +17,7 @@ from repro_torch.core import backends as tb
 
 
 def test_registry_and_auto_resolution():
-    assert tb.BACKENDS.available() == ("hopper", "torch")
+    assert tb.BACKENDS.available() == ("hopper", "streaming", "torch")
     assert tb.resolve_backend("auto", "cpu") == "torch"
     assert tb.resolve_backend("auto", "cuda") == "hopper"
     with pytest.raises(KeyError, match="available"):

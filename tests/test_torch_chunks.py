@@ -228,9 +228,9 @@ def test_unported_and_unchunkable_entries_are_refused():
     with pytest.raises(ValueError, match="cannot run out-of-core"):
         SketchedKRR(_cfg(sampler="rls_exact", chunk_rows=CHUNK)).fit(X, y)
     for field, name, item in [("sampler", "bless", 7),
-                              ("solver", "falkon_pcg", 6),
-                              ("solver", "eigenpro", 6),
-                              ("backend", "streaming", 5)]:
+                              ("solver", "dnc", 7),
+                              ("solver", "distributed", 9),
+                              ("backend", "sharded", 9)]:
         with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
             _cfg(**{field: name, "chunk_rows": CHUNK})
 

@@ -159,9 +159,9 @@ def test_auto_resolves_to_torch_on_cpu():
 @pytest.mark.parametrize("field,name,match", [
     ("sampler", "bless", "ROADMAP item 7"),
     ("sampler", "recursive_rls", "ROADMAP item 7"),
-    ("solver", "falkon_pcg", "ROADMAP item 6"),
+    ("solver", "dnc", "ROADMAP item 7"),
     ("solver", "distributed", "ROADMAP item 9"),
-    ("backend", "streaming", "ROADMAP item 5"),
+    ("backend", "sharded", "ROADMAP item 9"),
     ("backend", "pallas", "JAX backend"),
 ])
 def test_unported_entries_are_refused_at_construction(field, name, match):
