@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA GPU
 
-Drives ``repro_torch`` (never the JAX package) through eleven phases and
+Drives ``repro_torch`` (never the JAX package) through thirteen phases and
 exits non-zero on any failure:
 
   1. build     compile the CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -65,7 +65,34 @@ exits non-zero on any failure:
                source's passes; (f) hopper (streaming) against torch at
                n = 20,000 for falkon_pcg, eigenpro and streaming. Each fit
                is profiled once more.
- 10. lm        the dense LM at phi4-mini-3.8b's published widths (32 layers,
+ 10. samplers  the bless and recursive_rls samplers and the dnc solver at
+               full width, launch counts zeroed before and read after each
+               path, each stage timed: (a) sampler="bless" in memory on the
+               MSD-shaped rows (the auto schedule at lam.eps = 5e-7; K1 with
+               float64 accumulation and K2's float64-accumulating build),
+               its peak memory and its test MSE beside rls_fast's; (b) bless
+               out of core on the RCV1-shaped rows (K3, the sparse cell's
+               configuration), counting the source's passes; (c)
+               sampler="recursive_rls"; (d) solver="dnc" with 35 partitions
+               of 13,249 rows, with its n^2/m kernel evaluations; (e) hopper
+               against torch at n = 20,000 with the hopper fit's draws
+               injected; then the in-memory score pass at the MSD cell
+               against float64 scores, default policy against
+               Precision(accum_dtype="f64") and the 2 x 2 of the Gram's and
+               K2's precision. Each fit is profiled once more.
+ 11. serve     the async serve plane over two keys (the MSD rls_fast model
+               and the bless model of samplers (a)): (i) four client threads
+               submitting the 51,630 test rows as single-row requests,
+               BatchPolicy(max_batch=256, max_wait_ms=2.0), every answer
+               held to predict of its row, requests/s, p50/p99, batches by
+               bucket, one K1 launch a batch, then a profiled repeat; (ii) a
+               hot swap at one bucket of 256 with a deadline on every
+               request while a BackgroundRefresher publishes three refreshed
+               rls_fast duals (partial_fit over a chunk of 131,072 training
+               rows, then finalize): every answer bit-equal to its version's
+               snapshot, none dropped, no miss; then KRRServeEngine
+               (batch_size=256) against predict_batched(256).
+ 12. lm        the dense LM at phi4-mini-3.8b's published widths (32 layers,
                d_model 3072, 24 query / 8 KV heads, vocab 200,064), bfloat16,
                use_pallas, random weights from seed 0: the prefill of 1 x
                8,192 tokens (one K4 launch per layer, counts zeroed before
@@ -73,7 +100,7 @@ exits non-zero on any failure:
                chunked attention, decode_step against the prefill at 64
                tokens, and ServeEngine(slots=4, max_len=1024) answering 8
                requests of 32 new tokens.
- 11. summary   each kernel's time at its path's shapes (CUDA events), its
+ 13. summary   each kernel's time at its path's shapes (CUDA events), its
                plain version's, the matching PyTorch library call's, and
                its bound; one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
@@ -83,7 +110,9 @@ sparse path, ``build,iter`` for the iterative and streaming paths (it
 makes its own data; ``build,iter,summary`` adds K1's rows at their
 shapes), ``build,k4,lm,summary`` for the LM, ``build,k2,k4,summary`` for
 the kernel checks and K2 / K4 rows alone, ``build,k1,k3,summary`` for
-K1's and K3's checks and rows); the default runs all eleven. ``limits``, run
+K1's and K3's checks and rows, ``build,samplers`` and ``build,serve`` for
+this slice's paths (each makes its own data and models; add ``summary`` for
+their rows)); the default runs all thirteen. ``limits``, run
 only when named (``build,limits``), measures K2's 3xTF32 error at p = 2048,
 4096 and 8192 below the wrapper (which refuses p > 2048 in that build) and
 K1's float32 linear kind against ``torch.matmul`` at d = 16 and 256.
@@ -100,7 +129,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "k1", "k2", "k3", "k4", "main", "parity", "sparse",
-          "iter", "lm", "summary")
+          "iter", "samplers", "serve", "lm", "summary")
 # run only when named: the measurements behind two limits that PERF.md
 # states, K2's TF32X3_MAX_P and K1's float32 product rate
 OPT_IN = ("limits",)
@@ -187,6 +216,10 @@ ITER_FREE_BETA = {("falkon_pcg", "beta")}
 # beta (relative l2; the reference's bound between the two solvers,
 # tests/test_iterative.py)
 ITER_BETA_TOL = 1e-3
+# phase samplers (d): 463,715 = 35 x 13,249, so every row is in a partition
+DNC_PARTITIONS = 35
+# phase serve (ii): the deadline of every request of the hot swap
+SERVE_DEADLINE_MS = 5000.0
 
 # K4 against its plain version: float32 at the atol of
 # tests/test_kernels_pallas.py (both IEEE float32). bfloat16, compared in
@@ -805,7 +838,8 @@ def phase_main(res: dict, keep: dict) -> None:
     for row in prof["kernels"]:
         log(f"[main]   {row['device_us'] / 1e3:9.2f} ms  x{row['calls']:<4d} "
             f"{row['name']}")
-    keep.update(Xtr=Xtr, ytr=ytr, Xte=Xte, Z=state.landmarks)
+    keep.update(Xtr=Xtr, ytr=ytr, Xte=Xte, Z=state.landmarks,
+                msd_model=_serving_copy(model), msd_mse=mse)
 
 
 def phase_parity(res: dict, keep: dict) -> None:
@@ -1032,11 +1066,12 @@ def _mse(yhat, f) -> float:
     return float(torch.mean((yhat - torch.as_tensor(f, device="cuda")) ** 2))
 
 
-def _profile_line(tag: str, prof: dict, wall_s: float) -> None:
+def _profile_line(tag: str, prof: dict, wall_s: float,
+                  phase: str = "iter") -> None:
     prof["busy_share_of_unprofiled_wall"] = prof["busy_us"] / 1e6 / wall_s
     top = "; ".join(f"{r['name'][:40]} {r['device_us'] / 1e3:.1f} ms "
                     f"x{r['calls']}" for r in prof["kernels"][:4])
-    log(f"[iter] {tag} profiled: device busy {prof['busy_us'] / 1e3:.1f} ms "
+    log(f"[{phase}] {tag} profiled: device busy {prof['busy_us'] / 1e3:.1f} ms "
         f"= {100 * prof['busy_share_of_unprofiled_wall']:.1f} % of the "
         f"unprofiled {1e3 * wall_s:.0f} ms (profiled wall "
         f"{prof['wall_us'] / 1e3:.0f} ms); top: {top}")
@@ -1308,6 +1343,634 @@ def phase_iter(res: dict, keep: dict) -> None:
             check(errs[k] <= tols[k], f"(f) {label} {k}: {errs[k]:.3e} > "
                   f"{tols[k]:g}")
         out["f"][label] = errs
+
+# --------------------------------------------------- samplers and serving
+
+class _Timed:
+    """For the length of a ``with``: every call of ``module.name``
+    synchronised on both sides and timed, with ``record(args, result)``'s
+    fields and the kernel launches it made (a stage of a sampler)."""
+
+    def __init__(self, module, name: str, record):
+        self.module, self.name, self.record = module, name, record
+        self.calls: list[dict] = []
+
+    def __enter__(self) -> "_Timed":
+        import torch
+        from repro_torch.kernels import ops as kops
+        self._inner = inner = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            before = kops.launch_counts()
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            after = kops.launch_counts()
+            self.calls.append(dict(self.record(a, out), seconds=seconds,
+                                   launches={k: after[k] - before[k]
+                                             for k in after}))
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self._inner)
+
+
+def _stage_lines(tag: str, calls: list[dict]) -> None:
+    for h, c in enumerate(calls):
+        log(f"[samplers] {tag} stage {h + 1:2d}: lambda {c['lam']:.3e}, "
+            f"q {c['q']:4d}, d_eff estimate {c['d_eff']:.2f}, "
+            f"{c['seconds']:.3f} s, launches {c['launches']}")
+
+
+def _serving_copy(model):
+    """A model that holds only ``model``'s O(p) serving state (what the
+    serve plane needs; the O(n·p) training factor stays behind)."""
+    from repro_torch.api import SketchedKRR
+    return SketchedKRR(model.config).import_serving_state(
+        model.export_serving_state())
+
+
+def _msd_rls_fast(keep: dict):
+    """The main path's rls_fast / nystrom model of the MSD rows (phase
+    main's serving state, or fitted here when main did not run) and its
+    test MSE."""
+    if "msd_model" not in keep:
+        from repro_torch.api import RBFKernel, SketchConfig, SketchedKRR
+        Xtr, ytr, Xte, fte = _msd(keep)
+        model = SketchedKRR(SketchConfig(RBFKernel(BANDWIDTH), p=P,
+                                         lam=LAM)).fit(Xtr, ytr)
+        keep["msd_mse"] = _mse(model.predict_batched(
+            Xte, batch_size=PREDICT_BATCH), fte)
+        keep["msd_model"] = _serving_copy(model)
+    return keep["msd_model"], keep["msd_mse"]
+
+
+def _counting_sparse_source(X, y, chunk_rows: int):
+    """A ``SparseChunkSource`` that counts its ``chunks()`` calls (passes;
+    every pass uploads each chunk once)."""
+    from repro_torch.data import SparseChunkSource
+
+    class Counting(SparseChunkSource):
+        passes = 0
+
+        def chunks(self):
+            self.passes += 1
+            return super().chunks()
+
+    return Counting(X, y, chunk_rows)
+
+
+def _score_pass_precision(keep: dict) -> dict:
+    """The in-memory hopper score pass at the MSD cell (the uniform
+    landmarks of phase iter (c)) against float64 scores: the default
+    policy, Precision(accum_dtype="f64") throughout, and the 2 x 2 of
+    {float32, float64} BᵀB x {3xTF32, float64-accumulating} K2 on the
+    default route's B — which of the two sets the error."""
+    import torch
+    from repro_torch.api import Precision, RBFKernel
+    from repro_torch.core.backends import ops_for
+    from repro_torch.core.leverage import draw_landmarks, fast_ridge_leverage
+    kernel, lam_s = RBFKernel(BANDWIDTH), LAM * 0.5
+    X = torch.as_tensor(_msd(keep)[0], device="cuda")
+    n = X.shape[0]
+    idx = draw_landmarks(torch.Generator().manual_seed(5),
+                         torch.full((n,), 1.0 / n), P)
+    hop = ops_for(kernel, "hopper", device="cuda")
+    wide = ops_for(kernel, "hopper", device="cuda",
+                   precision=Precision(accum_dtype="f64"))
+    exact = fast_ridge_leverage(kernel, X.double(), lam_s, P, idx=idx,
+                                ops=ops_for(kernel, "torch",
+                                            device="cuda")).scores
+
+    def rel(s):
+        return float(((s.double() - exact).abs() / exact.abs()).max())
+
+    out = {"accum_f64_route": rel(fast_ridge_leverage(
+        kernel, X, lam_s, P, idx=idx, ops=wide).scores)}
+    default = fast_ridge_leverage(kernel, X, lam_s, P, idx=idx, ops=hop)
+    out["default_route"] = rel(default.scores)
+    B = default.B
+    del default
+    G32 = B.T @ B
+    Bw = B.double()
+    G64 = Bw.T @ Bw
+    del Bw
+    for gname, G in (("gram_f32", G32), ("gram_f64", G64)):
+        for kname, ops in (("k2_tf32x3", hop), ("k2_f64acc", wide)):
+            out[f"{gname}+{kname}"] = rel(ops.scores_given_gram(B, G,
+                                                                lam_s, n))
+    del B, G32, G64, exact, X
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_samplers(res: dict, keep: dict) -> None:
+    """The bless and recursive_rls samplers and the dnc solver at full
+    width: (a) bless in memory on the MSD rows, (b) bless out of core on
+    the RCV1 rows (K3), (c) recursive_rls, (d) dnc with 35 partitions of
+    13,249 rows, (e) hopper against torch at n = 20,000 with the same
+    draws; then the score pass's precision study."""
+    import torch
+    import repro_torch.core.bless as tbless
+    import repro_torch.core.recursive_rls as trec
+    from repro_torch.api import (Precision, RBFKernel, SketchConfig,
+                                 SketchedKRR)
+    from repro_torch.api import out_of_core
+    from repro_torch.core.dnc import dnc_kernel_evals
+    Xtr, ytr, Xte, fte = _msd(keep)
+    out: dict = {}
+    res["samplers"] = out
+    var_f = float(torch.var(torch.as_tensor(fte)))
+    cfg = SketchConfig(RBFKernel(BANDWIDTH), p=P, lam=LAM)
+    rls_model, mse_rls = _msd_rls_fast(keep)
+
+    def stage(a, r):
+        return dict(lam=float(a[2]), q=int(r.landmarks.numel()),
+                    d_eff=float(r.d_eff_estimate))
+
+    def check_fit(tag, run, f_test, n_test):
+        yhat = run["yhat"]
+        check(yhat.shape == (n_test,), f"({tag}) predictions shape")
+        check(bool(torch.isfinite(yhat).all()),
+              f"({tag}) non-finite predictions")
+        return _mse(yhat, f_test)
+
+    # (a) bless, in memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with _Timed(tbless, "fast_ridge_leverage", stage) as st:
+        a = _run_path("a", lambda: SketchedKRR(cfg.replace(
+            sampler="bless")).fit(Xtr, ytr),
+            lambda m: m.predict_batched(Xte, batch_size=PREDICT_BATCH))
+    peak = torch.cuda.max_memory_allocated() - held
+    _stage_lines("(a)", st.calls)
+    mse_a = check_fit("a", a, fte, N_TEST)
+    stages = len(st.calls)
+    fl = a["fit_launches"]
+    log(f"[samplers] (a) bless in memory: {stages} stages, fit "
+        f"{a['fit_s']:.2f} s (stages {sum(c['seconds'] for c in st.calls):.2f}"
+        f" s), launches in the fit {fl} (expected K1 stages + 1 = "
+        f"{stages + 1}, K2 {stages}), after predict "
+        f"{a['launches']['kernel_block']}; peak device memory "
+        f"{peak / 1e9:.2f} GB above the {held / 1e9:.2f} GB held; test MSE "
+        f"{mse_a:.4f}, rls_fast {mse_rls:.4f} (ratio "
+        f"{mse_a / mse_rls:.4f}), var(f*) {var_f:.4f}")
+    check(stages >= 2 and st.calls[-1]["lam"] == LAM * cfg.eps,
+          f"(a) schedule {[c['lam'] for c in st.calls]}")
+    check(all(c["q"] <= P for c in st.calls), "(a) a dictionary above p")
+    check(fl["kernel_block"] == stages + 1 and fl["rls_scores"] == stages,
+          f"(a) launches in the fit {fl}")
+    check(mse_a < var_f, f"(a) test MSE {mse_a:.4f} not below {var_f:.4f}")
+    out["a"] = dict(fit_s=a["fit_s"], predict_s=a["predict_s"],
+                    stages=st.calls, peak_bytes=peak, held_bytes=held,
+                    test_mse=mse_a, rls_fast_test_mse=mse_rls,
+                    launches=a["launches"], fit_launches=fl)
+    keep["bless_model"] = _serving_copy(a["out"])
+    del a
+    prof = _profile(lambda: SketchedKRR(cfg.replace(sampler="bless")).fit(
+        Xtr, ytr))
+    _profile_line("(a) bless fit", prof, out["a"]["fit_s"], "samplers")
+    out["a"]["profile"] = prof
+
+    # (b) bless out of core on the RCV1 rows (K3)
+    rc = _rcv1(keep)
+    scfg = SketchConfig(RBFKernel(RCV1_BANDWIDTH), p=P, lam=LAM,
+                        chunk_rows=CHUNK_ROWS, sampler="bless",
+                        precision=Precision(**SPARSE_PRECISION))
+    src = _counting_sparse_source(rc["train"], rc["y"], CHUNK_ROWS)
+
+    def ooc_stage(a, r):
+        return dict(lam=float(a[4]), q=int(a[2].shape[0]),
+                    d_eff=float(torch.sum(r[0])))
+
+    with _Timed(out_of_core, "chunked_score_pass", ooc_stage) as st:
+        b = _run_path("b", lambda: SketchedKRR(scfg).fit(src),
+                      lambda m: m.predict(rc["test"]))
+    _stage_lines("(b)", st.calls)
+    mse_b = check_fit("b", b, rc["f_test"], RCV1_TEST)
+    stages = len(st.calls)
+    chunks = -(-RCV1_TRAIN // CHUNK_ROWS)
+    fl = b["fit_launches"]
+    mse_sparse = res.get("sparse", {}).get("test_mse")
+    log(f"[samplers] (b) bless out of core (RCV1 shape, chunk_rows "
+        f"{CHUNK_ROWS}): {stages} stages, fit {b['fit_s']:.2f} s, {src.passes}"
+        f" passes over the source ({src.passes * chunks} chunk uploads; "
+        f"expected 3 x stages + 3 = {3 * stages + 3} passes); launches in the "
+        f"fit {fl} (K3 expected 2 x {chunks} chunks x stages + {chunks} = "
+        f"{2 * chunks * stages + chunks}, K1 stages + 1 = {stages + 1}); test "
+        f"MSE {mse_b:.4f}, rls_fast sparse fit "
+        f"{'not run' if mse_sparse is None else f'{mse_sparse:.4f}'}")
+    check(fl["sparse_cross"] == 2 * chunks * stages + chunks,
+          f"(b) K3 launched {fl['sparse_cross']} times")
+    check(fl["kernel_block"] == stages + 1 and fl["rls_scores"] == 0,
+          f"(b) launches in the fit {fl}")
+    check(src.passes == 3 * stages + 3, f"(b) {src.passes} passes")
+    check(mse_b < float(torch.var(torch.as_tensor(rc["f_test"]))),
+          f"(b) test MSE {mse_b:.4f}")
+    out["b"] = dict(fit_s=b["fit_s"], predict_s=b["predict_s"],
+                    stages=st.calls, passes=src.passes,
+                    chunk_uploads=src.passes * chunks, test_mse=mse_b,
+                    rls_fast_test_mse=mse_sparse, launches=b["launches"],
+                    fit_launches=fl)
+    del b
+    prof = _profile(lambda: SketchedKRR(scfg).fit(rc["train"], rc["y"]))
+    _profile_line("(b) bless out-of-core fit", prof, out["b"]["fit_s"],
+                  "samplers")
+    out["b"]["profile"] = prof
+
+    # (c) recursive_rls, in memory
+    with _Timed(trec, "fast_ridge_leverage", stage) as st:
+        c = _run_path("c", lambda: SketchedKRR(cfg.replace(
+            sampler="recursive_rls")).fit(Xtr, ytr),
+            lambda m: m.predict_batched(Xte, batch_size=PREDICT_BATCH))
+    _stage_lines("(c) level", st.calls)
+    mse_c = check_fit("c", c, fte, N_TEST)
+    fl = c["fit_launches"]
+    log(f"[samplers] (c) recursive_rls ({cfg.rls_levels} levels): fit "
+        f"{c['fit_s']:.2f} s, launches in the fit {fl}; test MSE "
+        f"{mse_c:.4f} (rls_fast {mse_rls:.4f})")
+    check(fl["kernel_block"] == cfg.rls_levels + 1
+          and fl["rls_scores"] == cfg.rls_levels, f"(c) launches {fl}")
+    check(mse_c < var_f, f"(c) test MSE {mse_c:.4f} not below {var_f:.4f}")
+    out["c"] = dict(fit_s=c["fit_s"], predict_s=c["predict_s"],
+                    levels=st.calls, test_mse=mse_c, launches=c["launches"],
+                    fit_launches=fl)
+    del c
+    prof = _profile(lambda: SketchedKRR(cfg.replace(
+        sampler="recursive_rls")).fit(Xtr, ytr))
+    _profile_line("(c) recursive_rls fit", prof, out["c"]["fit_s"],
+                  "samplers")
+    out["c"]["profile"] = prof
+
+    # (d) dnc: 463,715 = 35 x 13,249, every row in a partition
+    m = DNC_PARTITIONS
+    dcfg = cfg.replace(solver="dnc", partitions=m)
+    d = _run_path("d", lambda: SketchedKRR(dcfg).fit(Xtr, ytr),
+                  lambda mdl: mdl.predict(Xte))
+    mse_d = check_fit("d", d, fte, N_TEST)
+    evals, nys = dnc_kernel_evals(N_TRAIN, m), N_TRAIN * P
+    fl = d["fit_launches"]
+    log(f"[samplers] (d) dnc, {m} partitions of {N_TRAIN // m} rows: fit "
+        f"{d['fit_s']:.2f} s, predict {d['predict_s']:.2f} s, launches in "
+        f"the fit {fl}, after predict {d['launches']}; kernel evaluations "
+        f"n^2/m = {evals:.3e} against Nystrom's n.p = {nys:.3e} "
+        f"({evals / nys:.2f}x); test MSE {mse_d:.4f} (rls_fast "
+        f"{mse_rls:.4f}), var(f*) {var_f:.4f}")
+    check(fl["kernel_block"] == m and d["launches"]["kernel_block"] == 2 * m,
+          f"(d) launches {d['launches']}")
+    check(mse_d < var_f, f"(d) test MSE {mse_d:.4f} not below {var_f:.4f}")
+    out["d"] = dict(fit_s=d["fit_s"], predict_s=d["predict_s"],
+                    partitions=m, kernel_evals=evals,
+                    nystrom_kernel_evals=nys, test_mse=mse_d,
+                    launches=d["launches"], fit_launches=fl)
+    del d
+    prof = _profile(lambda: SketchedKRR(dcfg).fit(Xtr, ytr))
+    _profile_line("(d) dnc fit", prof, out["d"]["fit_s"], "samplers")
+    out["d"]["profile"] = prof
+    torch.cuda.empty_cache()
+
+    # (e) hopper against torch at n = 20,000, the hopper fit's draws
+    # injected into the torch fit
+    Xp, yp, Xq = Xtr[:N_PARITY], ytr[:N_PARITY], Xte[:N_PARITY_TEST]
+    out["e"] = {}
+    for label, kw, module in [
+            ("bless", dict(sampler="bless"), tbless),
+            ("recursive_rls", dict(sampler="recursive_rls"), trec),
+            ("dnc", dict(solver="dnc", partitions=5), None)]:
+        c1 = cfg.replace(**kw)
+        if module is None:
+            hop = SketchedKRR(c1.replace(backend="hopper")).fit(Xp, yp)
+            draws = dict(partitions=hop.state().model.partitions)
+        else:
+            with _Timed(module, "fast_ridge_leverage",
+                        lambda a, r: dict(idx=r.landmarks)) as st:
+                hop = SketchedKRR(c1.replace(backend="hopper")).fit(Xp, yp)
+            draws = dict(score_landmarks=[c["idx"] for c in st.calls],
+                         sample=hop.sample())
+        plain = SketchedKRR(c1.replace(backend="torch")).fit(Xp, yp, **draws)
+        y_h, y_t = hop.predict(Xq), plain.predict(Xq)
+        errs = {"predictions": float((y_h - y_t).abs().max()
+                                     / y_t.abs().max())}
+        if module is None:
+            a_h, a_t = hop.state().model.alphas, plain.state().model.alphas
+            errs["beta"] = float(torch.linalg.norm(a_h - a_t)
+                                 / torch.linalg.norm(a_t))
+        else:
+            b_h, b_t = hop.state().beta, plain.state().beta
+            errs["beta"] = float(torch.linalg.norm(b_h - b_t)
+                                 / torch.linalg.norm(b_t))
+            s_h, s_t = hop.scores(), plain.scores()
+            errs["scores"] = float(((s_h - s_t).abs() / s_t.abs()).max())
+        log(f"[samplers] (e) {label} hopper vs torch at n={N_PARITY}: "
+            + ", ".join(f"{k} {v:.3e} (tolerance {PARITY_TOL[k]:g})"
+                        for k, v in errs.items()))
+        for k, v in errs.items():
+            check(v <= PARITY_TOL[k], f"(e) {label} {k}: {v:.3e} > "
+                  f"{PARITY_TOL[k]:g}")
+        out["e"][label] = errs
+    del hop, plain
+
+    # the score pass's precision at the MSD cell (PERF.md §7)
+    study = _score_pass_precision(keep)
+    log("[samplers] score pass at the MSD cell, max relative error against "
+        "float64 scores on the same landmarks: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in study.items()))
+    out["score_pass_precision"] = study
+
+
+def _serve_clients(eng, X, rows, keys, threads: int = 4, pace=None):
+    """``threads`` client threads submitting one request a row of X (row i
+    to ``keys[i % len(keys)]``), each thread every ``threads``-th of
+    ``rows``, calling ``pace()`` after every 64 submissions; returns
+    [(row, key, future)] and the seconds the submissions took."""
+    import threading
+    subs: list[list] = [[] for _ in range(threads)]
+
+    def client(t):
+        for j, i in enumerate(rows[t::threads]):
+            key = keys[int(i) % len(keys)]
+            subs[t].append((int(i), key, eng.submit(X[int(i)], model=key)))
+            if pace is not None and j % 64 == 63:
+                pace()
+    ths = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(600)
+    return [s for sub in subs for s in sub], time.perf_counter() - t0
+
+
+def phase_serve(res: dict, keep: dict) -> None:
+    """The async serve plane on the card, serving two keys (the MSD rls_fast
+    model and the bless model of phase samplers (a)): (i) throughput, four
+    client threads submitting the 51,630 test rows as single-row requests;
+    (ii) a hot swap under load, a BackgroundRefresher publishing refreshed
+    rls_fast duals while requests run; then KRRServeEngine draining the
+    rows in micro-batches of 256."""
+    import collections
+    import numpy as np
+    import torch
+    from repro_torch.api import RBFKernel, SketchConfig, SketchedKRR
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime import KRRRequest, KRRServeEngine
+    from repro_torch.serve import (AsyncServeEngine, BackgroundRefresher,
+                                   BatchPolicy, ModelSlot)
+    Xtr, ytr, Xte, fte = _msd(keep)
+    cfg = SketchConfig(RBFKernel(BANDWIDTH), p=P, lam=LAM)
+    rls, _ = _msd_rls_fast(keep)
+    if "bless_model" not in keep:
+        keep["bless_model"] = _serving_copy(SketchedKRR(cfg.replace(
+            sampler="bless")).fit(Xtr, ytr))
+    models = {"rls_fast": rls, "bless": keep["bless_model"]}
+    keys = ("rls_fast", "bless")
+    out: dict = {}
+    res["serve"] = out
+    # each answer against predict of its row: the K1 blocks of the two
+    # shapes agree to the float32 block tolerance, so an answer may move by
+    # that much of each term of its contraction, Σ_j |k(x, z_j) β_j|
+    want, scale = {}, {}
+    for key, mdl in models.items():
+        st = mdl.state()
+        want[key] = mdl.predict(Xte).cpu().numpy()
+        scale[key] = mdl.ops().matvec(torch.as_tensor(Xte, device="cuda"),
+                                      st.landmarks, st.beta.abs()
+                                      ).cpu().numpy()
+    torch.cuda.synchronize()
+
+    # (i) throughput
+    policy = BatchPolicy(max_batch=256, max_wait_ms=2.0)
+
+    def run_i():
+        eng = AsyncServeEngine(models, policy=policy)
+        with eng:
+            subs, submit_s = _serve_clients(eng, Xte, np.arange(N_TEST),
+                                            keys)
+            got = [(i, k, f.result(60)) for i, k, f in subs]
+        return eng, got, submit_s
+
+    run_i()                                  # warm-up: each bucket once
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, got, submit_s = run_i()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    stats = eng.stats()
+    worst = {k: 0.0 for k in keys}
+    worst_rel = {k: 0.0 for k in keys}
+    for i, k, r in got:
+        dev = abs(r.y_hat - float(want[k][i]))
+        worst[k] = max(worst[k], dev)
+        worst_rel[k] = max(worst_rel[k], dev / float(scale[k][i]))
+    buckets = dict(sorted(collections.Counter(stats.buckets).items()))
+    log(f"[serve] (i) {N_TEST} single-row requests from 4 threads over keys "
+        f"{keys}: {N_TEST / wall:.0f} requests/s ({wall:.2f} s, submissions "
+        f"{submit_s:.2f} s); latency p50 {stats.p50():.2f} ms, p99 "
+        f"{stats.p99():.2f} ms; {stats.batches} batches by bucket {buckets}; "
+        f"K1 launches {counts['kernel_block']} (one a batch); misses "
+        f"{stats.misses}, shed {stats.shed}; max |answer - predict| "
+        f"{worst} = {worst_rel} of sum_j |k_j beta_j| (tolerance "
+        f"{K1_TOL['float32']:g})")
+    check(stats.served == N_TEST and len(got) == N_TEST,
+          f"(i) served {stats.served} of {N_TEST}")
+    check(stats.misses == 0 and stats.shed == 0, f"(i) misses / shed")
+    check(counts["kernel_block"] == stats.batches,
+          f"(i) K1 launched {counts['kernel_block']} times for "
+          f"{stats.batches} batches")
+    for k in keys:
+        check(worst_rel[k] <= K1_TOL["float32"],
+              f"(i) {k} answers {worst_rel[k]:.3e} from predict")
+    out["i"] = dict(requests=N_TEST, wall_s=wall, submit_s=submit_s,
+                    requests_per_s=N_TEST / wall, p50_ms=stats.p50(),
+                    p99_ms=stats.p99(), batches=stats.batches,
+                    buckets=buckets, launches=counts,
+                    max_abs_dev=worst, max_rel_dev=worst_rel)
+    del got
+    prof = _profile(run_i)
+    _profile_line("(i) serve", prof, wall, "serve")
+    out["i"]["profile"] = prof
+
+    # (ii) the hot swap: one bucket, a deadline on every request; a
+    # BackgroundRefresher publishes refreshed rls_fast duals (partial_fit
+    # over one chunk of CHUNK_ROWS training rows, then finalize) while four
+    # threads keep submitting
+    class Keeping(BackgroundRefresher):
+        """Keeps the snapshot of each version it published (the model's
+        state right after the publish, as a slot of its own)."""
+
+        def ingest(self, X, y):
+            version = super().ingest(X, y)
+            self.snaps[version] = ModelSlot(self.model).current()
+            return version
+
+    BUCKET = 256
+    policy = BatchPolicy(max_batch=BUCKET, max_wait_ms=2.0, buckets=(BUCKET,),
+                         default_deadline_ms=SERVE_DEADLINE_MS)
+    eng = AsyncServeEngine(models, policy=policy)
+    refresher = Keeping(eng, SketchedKRR(cfg), key="rls_fast")
+    refresher.snaps = {1: ModelSlot(rls).current()}
+    chunks = [(Xtr[i * CHUNK_ROWS:(i + 1) * CHUNK_ROWS],
+               ytr[i * CHUNK_ROWS:(i + 1) * CHUNK_ROWS]) for i in range(3)]
+    rows, edge = np.arange(N_TEST), min(2048, N_TEST // 8)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with eng:
+        # wave A on version 1, wave B while the refresher publishes, wave C
+        # after it has published its last version
+        wave_a = [(i, "rls_fast", eng.submit(Xte[i], model="rls_fast"))
+                  for i in range(edge)]
+        wave_a = [(i, k, f.result(60)) for i, k, f in wave_a]
+        refresher.start(chunks)
+        wave_b, _ = _serve_clients(eng, Xte, rows[edge:N_TEST - edge],
+                                   ("rls_fast",),
+                                   pace=lambda: time.sleep(0.008))
+        wave_b = [(i, k, f.result(60)) for i, k, f in wave_b]
+        refresher.join(timeout=300)
+        wave_c = [(i, "rls_fast", eng.submit(Xte[i], model="rls_fast"))
+                  for i in range(N_TEST - edge, N_TEST)]
+        wave_c = [(i, k, f.result(60)) for i, k, f in wave_c]
+    wall = time.perf_counter() - t0
+    stats = eng.stats()
+    results = wave_a + wave_b + wave_c
+    by_version = collections.defaultdict(list)
+    for i, _, r in results:
+        by_version[r.version].append((i, r.y_hat))
+    unequal = 0
+    for version, pairs in by_version.items():
+        snap = refresher.snaps[version]
+        for s in range(0, len(pairs), BUCKET):
+            part = pairs[s:s + BUCKET]
+            ref = snap.predict_padded(Xte[[i for i, _ in part]], BUCKET)
+            unequal += sum(float(v) != y for v, (_, y) in zip(ref, part))
+    served = {v: len(p) for v, p in sorted(by_version.items())}
+    log(f"[serve] (ii) hot swap: {len(results)} requests in {wall:.2f} s "
+        f"while the refresher published versions {refresher.versions}; "
+        f"answers by version {served}; {unequal} answers not bit-equal to "
+        f"their snapshot's predict_padded at bucket {BUCKET}; misses "
+        f"{stats.misses}, p50 {stats.p50():.2f} ms, p99 {stats.p99():.2f} "
+        f"ms, launches {kops.launch_counts()}")
+    check(len(results) == N_TEST and stats.served == N_TEST,
+          f"(ii) served {stats.served} of {N_TEST}")
+    check(refresher.versions == [2, 3, 4],
+          f"(ii) published {refresher.versions}")
+    check(len(served) >= 2, f"(ii) versions served {served}")
+    check(all(r.version == 1 for _, _, r in wave_a)
+          and all(r.version == 4 for _, _, r in wave_c),
+          "(ii) waves A and C served from the wrong version")
+    check(unequal == 0, f"(ii) {unequal} answers differ from their "
+          "snapshot")
+    check(stats.misses == 0, f"(ii) {stats.misses} deadline misses")
+    out["ii"] = dict(requests=len(results), wall_s=wall,
+                     published=refresher.versions, served_by_version=served,
+                     not_bit_equal=unequal, misses=stats.misses,
+                     p50_ms=stats.p50(), p99_ms=stats.p99())
+
+    # the synchronous micro-batcher over the same rows
+    sync = KRRServeEngine(rls, batch_size=BUCKET)
+    for i in range(N_TEST):
+        sync.submit(KRRRequest(i, Xte[i]))
+    t0 = time.perf_counter()
+    done = sync.run(max_steps=N_TEST)
+    sync_s = time.perf_counter() - t0
+    batched = rls.predict_batched(Xte, batch_size=BUCKET).cpu().numpy()
+    diff = max(abs(r.y_hat - float(batched[r.uid])) for r in done)
+    log(f"[serve] KRRServeEngine(batch_size={BUCKET}): {len(done)} requests "
+        f"in {sync_s:.2f} s ({len(done) / sync_s:.0f} requests/s); max "
+        f"|answer - predict_batched({BUCKET})| {diff:.3e}")
+    check(len(done) == N_TEST and diff == 0.0,
+          f"KRRServeEngine: {len(done)} answers, max deviation {diff:.3e}")
+    out["sync"] = dict(requests=len(done), wall_s=sync_s, max_abs_dev=diff)
+
+
+def _summary_slice7(res: dict, keep: dict) -> list[dict]:
+    """The rows of the shapes phase samplers and phase serve run: K1's
+    FP64-tensor-core build (float32 data, float64 accumulation) at a bless
+    stage (463,715, 2048, 90) beside torch.matmul on float64 copies; K1 at
+    a dnc partition (13,249, 13,249, 90); K1 at each serve bucket of (i);
+    and K2's float64-accumulating build on float32 B at (463,715, 2048)
+    beside the float64 einsum."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rbf_block import kernel_block
+    from repro_torch.kernels.rls_scores import rls_scores_fused
+    X = torch.as_tensor(_msd(keep)[0], device="cuda")
+    n, d = X.shape
+    Z = X[torch.randperm(n, generator=torch.Generator().manual_seed(6))[:P]
+          .cuda()].contiguous()
+    smp = res.get("samplers", {})
+    rows = []
+    acc = torch.float64
+    X64, Z64 = X.double(), Z.double()
+    C = kernel_block(X, Z, kind="rbf", bandwidth=BANDWIDTH, acc_dtype=acc)
+    err = float((C - ref.rbf_block_ref(X64, Z64, BANDWIDTH).float())
+                .abs().max())
+    del C
+    ms = cuda_ms(lambda: kernel_block(X, Z, kind="rbf", bandwidth=BANDWIDTH,
+                                      acc_dtype=acc), reps=5)
+    plain = cuda_ms(lambda: ref.rbf_block_ref(X64, Z64, BANDWIDTH).float(),
+                    reps=2)
+    lib = cuda_ms(lambda: torch.matmul(X64, Z64.T), reps=3)
+    bound, by = _k1_bound(n, P, d, "float64")
+    launches = (smp["a"]["fit_launches"]["kernel_block"] - 1
+                if "a" in smp else None)
+    log(f"[summary] K1 rbf bless stage (n,p,d)=({n},{P},{d}) f32 data / f64 "
+        f"accumulation (FP64 tensor cores): kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, torch.matmul on float64 copies {lib:.3f} ms, bound "
+        f"{bound:.3f} ms ({by}), max|Δ| {err:.3e}, launches on the bless "
+        f"path {launches}")
+    check(err <= K1_TOL["float32"], f"K1 bless stage: {err:.3e}")
+    rows.append(_k1_row("bless stage", launches, err, ms, plain, bound, by,
+                        lib, library_fn="torch.matmul on float64 copies"))
+    del X64, Z64
+    torch.cuda.empty_cache()
+    size = N_TRAIN // DNC_PARTITIONS
+    rows.append(_k1_shape_row(
+        "dnc partition", X[:size], X[:size].contiguous(),
+        smp.get("d", {}).get("fit_launches", {}).get("kernel_block"), 10))
+    for bucket, count in res.get("serve", {}).get("i", {}).get(
+            "buckets", {}).items():
+        rows.append(_k1_shape_row(f"serve bucket {bucket}", X[:bucket], Z,
+                                  count, 100))
+    # K2's float64-accumulating build on float32 B (the bless stages')
+    B, M = _scores_problem(n, P, torch.float32,
+                           torch.Generator(device="cuda").manual_seed(4))
+    s = rls_scores_fused(B, M, acc_dtype=acc)
+    B64 = B.double()
+    want = ref.rls_scores_ref(B64, M)
+    rel = float(((s.double() - want).abs() / want.abs()).max())
+    err2 = float((s.double() - want).abs().max())
+    del want
+    ms2 = cuda_ms(lambda: rls_scores_fused(B, M, acc_dtype=acc), reps=3)
+    plain2 = cuda_ms(lambda: ref.rls_scores_ref(B64, M).float(), reps=3)
+    lib2 = cuda_ms(lambda: torch.einsum("ij,jk,ik->i", B64, M, B64), reps=3)
+    ops2 = 2 * n * P * P + 2 * n * P
+    b2, by2 = _bound_ms(ops2, 4 * (n * P + n) + 8 * P * P, "float64")
+    simt2 = ops2 / (PEAK_OPS["float64"] / 2) * 1e3
+    launches2 = smp["a"]["fit_launches"]["rls_scores"] if "a" in smp else None
+    log(f"[summary] K2 (n,p)=({n},{P}) f32 data / f64 accumulation (SIMT "
+        f"fma): kernel {ms2:.3f} ms, plain {plain2:.3f} ms, float64 einsum "
+        f"{lib2:.3f} ms, bound {b2:.3f} ms ({by2}, the FP64 peak; "
+        f"{simt2:.3f} ms at the CUDA cores' half of it), max rel Δ "
+        f"{rel:.3e} (rtol {K2_RTOL['float32']:g}), launches on the bless "
+        f"path {launches2}")
+    check(rel <= K2_RTOL["float32"], f"K2 f32/f64 at main shape: {rel:.3e}")
+    del B, B64, M
+    torch.cuda.empty_cache()
+    rows.append(dict(name="rls_scores", shape="bless stage, f32/f64",
+                     route="cuda",
+                     source="src/repro_torch/kernels/csrc/rls_scores.cu",
+                     replaces="src/repro/kernels/rls_scores.py:37",
+                     launches=launches2, max_abs_err=err2, ms=ms2,
+                     plain_ms=plain2, bound_ms=b2, bound_by=by2,
+                     library_ms=lib2, simt_f64_bound_ms=simt2,
+                     library_fn="einsum on float64 copies"))
+    return rows
+
 
 def _lm_config():
     import dataclasses
@@ -1915,6 +2578,8 @@ def phase_summary(res: dict, keep: dict) -> None:
         rows.append(_summary_sparse(res, keep))
     if "lm" in keep or "k4" in keep:
         rows.append(_summary_attention(res))
+    if "samplers" in res or "serve" in res:
+        rows.extend(_summary_slice7(res, keep))
     res["kernels"] = rows
 
 
@@ -2019,6 +2684,10 @@ def main() -> int:
             phase_sparse(res, keep)
         elif name == "iter":
             phase_iter(res, keep)
+        elif name == "samplers":
+            phase_samplers(res, keep)
+        elif name == "serve":
+            phase_serve(res, keep)
         elif name == "lm":
             phase_lm(res, keep)
         elif name == "summary":

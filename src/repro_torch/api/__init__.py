@@ -8,15 +8,20 @@
     y_hat = model.predict(X_test)
 
 Samplers: uniform, diagonal, rls_exact, rls_fast (the default: Theorem-4
-fast scores, then the Theorem-3 leverage draw). Solvers: exact, nystrom
-(the default), nystrom_regularized, and the iterative falkon_pcg and
-eigenpro. Backends: hopper (the CUDA kernels), torch (plain PyTorch),
+fast scores, then the Theorem-3 leverage draw), bless and recursive_rls.
+Solvers: exact, nystrom (the default), nystrom_regularized, dnc, and the
+iterative falkon_pcg and eigenpro. Backends: hopper (the CUDA kernels), torch (plain PyTorch),
 streaming (hopper's tiles over ``block_rows``-row blocks), auto (hopper on
 CUDA, torch on the CPU).
 
 Out of core: ``fit(source)`` with a chunk source (eigenpro streams it once
 per epoch), ``fit(X_csr, y)`` with CSR rows, ``chunk_rows=`` on the
 config, ``partial_fit``/``finalize``.
+
+Serving (``repro_torch.serve``): the landmark fits export their O(p) dual
+as a ``ServingState``, which ``solver_state_from_serving`` turns into the
+state the solvers' ``predict`` takes; ``make_batched_predict`` serves the
+others.
 """
 from ..core.kernels import (BernoulliKernel, LinearKernel, PolynomialKernel,
                             RBFKernel)
@@ -28,8 +33,9 @@ from ..data.chunks import (ArrayChunkSource, ChunkSource,
 from ..data.sparse import CsrMatrix, SparseChunkSource, is_sparse_matrix
 from .config import SketchConfig
 from .estimator import (NotFittedError, ServingState, SketchedKRR,
-                        serving_state_from_reference)
+                        serving_state_from_reference,
+                        solver_state_from_serving)
 from .out_of_core import (CHUNKABLE_SAMPLERS, SPARSE_CHUNK_SOLVERS,
-                          fit_from_source)
-from .samplers import SAMPLERS, SamplerOutput
-from .solvers import SOLVERS, NystromState
+                          ChunkedFitResult, fit_from_source)
+from .samplers import SAMPLERS, Sampler, SamplerOutput
+from .solvers import SOLVERS, NystromState, Solver

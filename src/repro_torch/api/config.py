@@ -21,8 +21,8 @@ from ..core.precision import Precision
 
 # reference registry entries still to port → their ROADMAP item
 NOT_PORTED = {
-    "sampler": {"bless": 7, "recursive_rls": 7},
-    "solver": {"dnc": 7, "distributed": 9},
+    "sampler": {},
+    "solver": {"distributed": 9},
     "backend": {"sharded": 9, "xla": None, "pallas": None},
 }
 
@@ -53,12 +53,19 @@ class SketchConfig:
       seed:      seed of the sampler's ``torch.Generator`` streams.
       precision: the per-stage dtype policy (``core.precision.Precision``);
                  inputs are cast to its ``data_dtype`` at fit/predict time.
-      p_scores:  landmark count for the Theorem-4 score pass (``None`` → p).
-      sampler:   "uniform" | "diagonal" | "rls_exact" | "rls_fast".
-      solver:    "exact" | "nystrom" | "nystrom_regularized" | "eigenpro"
-                 | "falkon_pcg" (the last two iterate on the regularized
-                 sketch's landmark-space system, ``core/eigenpro.py`` and
-                 ``core/distributed.py``).
+      p_scores:  landmark count for the Theorem-4 score pass (``None`` → p);
+                 for ``bless`` the cap of every stage's dictionary.
+      bless_stages: ``bless``: annealing stages (``None`` → the halving
+                 schedule, trimmed of the stages the dictionary floor
+                 already certifies).
+      bless_oversample: ``bless``: dictionary size over the predicted
+                 effective dimension.
+      sampler:   "uniform" | "diagonal" | "rls_exact" | "rls_fast" |
+                 "bless" | "recursive_rls".
+      solver:    "exact" | "nystrom" | "nystrom_regularized" | "dnc" |
+                 "eigenpro" | "falkon_pcg" (the last two iterate on the
+                 regularized sketch's landmark-space system,
+                 ``core/eigenpro.py`` and ``core/distributed.py``).
       backend:   "hopper" | "torch" | "streaming" | "auto" (CUDA → hopper,
                  CPU → torch). "streaming" takes its tiles from hopper in
                  ``block_rows``-row blocks, so no compute intermediate is
@@ -66,6 +73,8 @@ class SketchConfig:
                  C or B.
       block_rows: row tile of the streaming executor.
       jitter:    relative jitter for the p×p Cholesky factorizations.
+      partitions: ``dnc``: the number of blocks m.
+      rls_levels: ``recursive_rls``: refinement levels.
       device:    "cuda" (the default; raises when no GPU is present) or
                  "cpu".
       chunk_rows: out-of-core chunk size. When set, ``fit(X, y)`` streams
@@ -95,10 +104,14 @@ class SketchConfig:
     seed: int = 0
     precision: Precision = Precision()
     p_scores: int | None = None
+    bless_stages: int | None = None
+    bless_oversample: float = 2.0
     sampler: str = "rls_fast"
     solver: str = "nystrom"
     backend: str = "auto"
     jitter: float = 1e-10
+    partitions: int = 4
+    rls_levels: int = 2
     device: str = "cuda"
     chunk_rows: int | None = None
     block_rows: int = DEFAULT_BLOCK_ROWS
@@ -118,6 +131,12 @@ class SketchConfig:
             raise ValueError(f"eps must be positive, got {self.eps}")
         if self.p_scores is not None and self.p_scores <= 0:
             raise ValueError(f"p_scores must be positive, got {self.p_scores}")
+        if self.bless_stages is not None and self.bless_stages <= 0:
+            raise ValueError(
+                f"bless_stages must be positive, got {self.bless_stages}")
+        if self.bless_oversample <= 0:
+            raise ValueError(f"bless_oversample must be positive, got "
+                             f"{self.bless_oversample}")
         if self.block_rows <= 0:
             raise ValueError(
                 f"block_rows must be positive, got {self.block_rows}")

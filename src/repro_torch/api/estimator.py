@@ -28,12 +28,17 @@ the first chunk. Such models predict like in-memory ones; ``risk`` and
 The fitted model of the landmark solvers is the O(p) ``ServingState`` —
 β, the landmark rows Z and the sketch column weights — which
 ``export_serving_state``/``import_serving_state`` move between estimators,
-and ``serving_state_from_reference`` builds from the JAX package's export.
+``serving_state_from_reference`` builds from the JAX package's export, and
+``solver_state_from_serving`` turns into the state the solvers' ``predict``
+takes (the serve plane, ``repro_torch.serve``, passes it as an argument).
+``make_batched_predict`` is the fixed-batch predict with the fitted state
+closed over, through which ``predict_batched`` and the serve plane serve
+solvers without an O(p) dual (``exact``, ``dnc``).
 """
 from __future__ import annotations
 
 import os
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -65,6 +70,16 @@ class ServingState(NamedTuple):
     landmarks: Tensor
     col_weights: Tensor | None
     solver: str
+
+
+def solver_state_from_serving(serving: ServingState) -> NystromState:
+    """A predict-capable ``NystromState`` holding only the serving triple
+    (β, Z, column weights): what the landmark solvers' ``predict`` reads.
+    Training-set diagnostics (``risk``, ``predict_train``) are not
+    rebuilt from O(p) state and stay unavailable."""
+    return NystromState(approx=None, alpha=None, beta=serving.beta,
+                        landmarks=serving.landmarks,
+                        col_weights=serving.col_weights)
 
 
 def serving_state_from_reference(fields: dict, *,
@@ -103,6 +118,7 @@ class SketchedKRR:
         self._scores: Tensor | None = None
         self._X_train: Tensor | None = None
         self._injected: dict = {}
+        self._predict_fn: Callable[[Tensor], Tensor] | None = None
         self._accum: Any = None       # live ChunkAccumulator (partial_fit)
         self._n_seen = 0
 
@@ -120,15 +136,23 @@ class SketchedKRR:
         return torch.as_tensor(arr, dtype=dt, device=self.device)
 
     def _draws(self, sample, score_landmarks) -> dict:
-        """Injected draws as tensors on this estimator's device."""
+        """Injected draws as tensors on this estimator's device (a list of
+        them for the per-stage / per-level landmarks of ``bless`` and
+        ``recursive_rls``)."""
+        if isinstance(score_landmarks, (list, tuple)):
+            landmarks = [torch.as_tensor(i, device=self.device)
+                         for i in score_landmarks]
+        else:
+            landmarks = (None if score_landmarks is None else
+                         torch.as_tensor(score_landmarks, device=self.device))
         return {
-            "landmarks": None if score_landmarks is None
-            else torch.as_tensor(score_landmarks, device=self.device),
+            "landmarks": landmarks,
             "sample": None if sample is None else ColumnSample(
                 *(torch.as_tensor(a, device=self.device) for a in sample))}
 
     def fit(self, X, y=None, *, sample: ColumnSample | None = None,
-            score_landmarks: Tensor | None = None) -> "SketchedKRR":
+            score_landmarks: Tensor | None = None,
+            partitions: Tensor | None = None) -> "SketchedKRR":
         """Fit from in-memory rows — or out of core.
 
         Input shapes:
@@ -146,15 +170,20 @@ class SketchedKRR:
             callable yielding ``(X_block, y_block)`` pairs (a
             ``GeneratorChunkSource``), at ``chunk_rows`` (default 4096).
 
-        ``sample`` (a ``ColumnSample``) and ``score_landmarks`` (the
-        Theorem-4 pass's landmark indices) replace the fit's own random
-        draws with given ones — the seam through which the parity tests
-        inject the reference's draws, which PyTorch cannot reproduce.
+        ``sample`` (a ``ColumnSample``), ``score_landmarks`` (the
+        Theorem-4 pass's landmark indices; for ``bless`` and
+        ``recursive_rls`` a list, one per stage or level) and
+        ``partitions`` (the ``dnc`` solver's (m, n/m) row indices, in
+        memory) replace the fit's own random draws with given ones — the
+        seam through which the parity tests inject the reference's draws,
+        which PyTorch cannot reproduce.
         Chunked fits are bit-identical across source kinds at equal
         ``chunk_rows``.
         """
         cfg = self.config
-        draws = dict(sample=sample, score_landmarks=score_landmarks)
+        draws = dict(sample=sample, score_landmarks=score_landmarks,
+                     partitions=partitions)
+        self._predict_fn = None
         if isinstance(X, ChunkSource):
             if y is not None:
                 raise ValueError("fit(source): targets ride inside the "
@@ -182,12 +211,23 @@ class SketchedKRR:
         # solvers that ignore the sample (exact) skip the sampling pass;
         # scores()/sample() run it lazily from the same seed
         drawn = self._run_sampler() if self._solver.needs_sample else None
-        self._state = self._solver.fit(self.config, self._X_train, y, drawn)
+        extra = {}
+        if partitions is not None:
+            if cfg.solver != "dnc":
+                raise ValueError(f"partitions= is the dnc solver's draw; "
+                                 f"solver {cfg.solver!r} takes none")
+            extra["partitions"] = torch.as_tensor(partitions,
+                                                  device=self.device)
+        self._state = self._solver.fit(self.config, self._X_train, y, drawn,
+                                       **extra)
         return self
 
     def _fit_source(self, source: ChunkSource, *, sample=None,
-                    score_landmarks=None) -> "SketchedKRR":
+                    score_landmarks=None, partitions=None) -> "SketchedKRR":
         """Out-of-core fit through ``repro_torch.api.out_of_core``."""
+        if partitions is not None:
+            raise ValueError("partitions= is the in-memory dnc fit's draw; "
+                             "an out-of-core fit takes none")
         self._sample = self._scores = self._X_train = None
         self._accum = None
         draws = self._draws(sample, score_landmarks)
@@ -235,6 +275,7 @@ class SketchedKRR:
         if self._accum is None:
             raise NotFittedError("call partial_fit(X, y) before finalize()")
         self._state = self._accum.finalize(self._n_seen)
+        self._predict_fn = None
         return self
 
     def _run_sampler(self) -> ColumnSample:
@@ -274,12 +315,35 @@ class SketchedKRR:
         return self._solver.predict_train(self.config, self._state,
                                           self._X_train)
 
-    def predict_batched(self, X_test, batch_size: int = 256) -> Tensor:
-        """Predict in fixed-size batches, padding the tail batch with
-        copies of its last row (the serve path's fixed shapes).
+    def make_batched_predict(self) -> Callable[[Tensor], Tensor]:
+        """The fixed-batch predict of the serve path: a callable
+        ``Xb -> y`` with the fitted state closed over, built once and
+        cached on the estimator until the next fit, ``finalize`` or import.
+        ``Xb`` must be on the model's device in its data dtype.
 
-        With ``config.precision.serve_dtype`` set, each batch is cast to
-        that dtype and its blocks are evaluated there."""
+        With ``config.precision.serve_dtype`` set it is the quantized
+        server: the batch is cast to that dtype and its blocks are
+        evaluated there, the contraction in ``accum_dtype``. Unset, it
+        serves at full fit precision, as ``predict`` always does."""
+        self._require_fit()
+        if self._predict_fn is None:
+            cfg, solver, state = self.config, self._solver, self._state
+            serve = cfg.precision.serve()
+            if serve is None:
+                def fn(Xb):
+                    return solver.predict(cfg, state, Xb)
+            else:
+                qcfg = cfg.replace(precision=cfg.precision.for_serving())
+
+                def fn(Xb):
+                    return solver.predict(qcfg, state, Xb.to(serve))
+            self._predict_fn = fn
+        return self._predict_fn
+
+    def predict_batched(self, X_test, batch_size: int = 256) -> Tensor:
+        """Predict in fixed-size batches through ``make_batched_predict``,
+        padding the tail batch with copies of its last row (the serve
+        path's fixed shapes)."""
         self._require_fit()
         if is_sparse_matrix(X_test):
             raise TypeError(
@@ -290,10 +354,7 @@ class SketchedKRR:
         n = X_test.shape[0]
         if n == 0:
             return self.predict(X_test)
-        cfg, solver, state = self.config, self._solver, self._state
-        serve = cfg.precision.serve()
-        if serve is not None:
-            cfg = cfg.replace(precision=cfg.precision.for_serving())
+        fn = self.make_batched_predict()
         outs = []
         for start in range(0, n, batch_size):
             blk = X_test[start:start + batch_size]
@@ -301,23 +362,24 @@ class SketchedKRR:
             if valid < batch_size:
                 blk = torch.cat([blk, blk[-1:].expand(batch_size - valid,
                                                       *blk.shape[1:])])
-            if serve is not None:
-                blk = blk.to(serve)
-            outs.append(solver.predict(cfg, state, blk)[:valid])
+            outs.append(fn(blk)[:valid])
         return torch.cat(outs)
 
     # ------------------------------------------------------- serving state
 
     def export_serving_state(self) -> ServingState:
-        """The O(p) state a serving process needs — and nothing else.
-        ``exact`` raises ``TypeError``: its state is O(n)."""
+        """The O(p) state a serving process needs — and nothing else; a
+        snapshot that later ``partial_fit``/``finalize`` rounds leave
+        untouched. ``exact`` and ``dnc`` raise ``TypeError``: their state
+        is O(n), served through ``make_batched_predict``."""
         self._require_fit()
         beta = getattr(self._state, "beta", None)
         landmarks = getattr(self._state, "landmarks", None)
         if beta is None or landmarks is None:
             raise TypeError(
                 f"solver {self.config.solver!r} has no O(p) landmark dual to "
-                "export — its fitted state scales with the training set")
+                "export — its fitted state scales with the training set; "
+                "serve it through make_batched_predict() instead")
         return ServingState(beta=beta, landmarks=landmarks,
                             col_weights=getattr(self._state, "col_weights",
                                                 None),
@@ -334,12 +396,13 @@ class SketchedKRR:
                 f"{self.config.solver!r}; duals are not portable across "
                 "solvers")
         weights = serving.col_weights
-        self._state = NystromState(
-            approx=None, alpha=None, beta=serving.beta.to(self.device),
+        self._state = solver_state_from_serving(serving._replace(
+            beta=serving.beta.to(self.device),
             landmarks=serving.landmarks.to(self.device),
-            col_weights=None if weights is None else weights.to(self.device))
+            col_weights=None if weights is None else weights.to(self.device)))
         self._sample = self._scores = self._X_train = None
         self._accum = None
+        self._predict_fn = None
         return self
 
     # ---------------------------------------------------------- diagnostics

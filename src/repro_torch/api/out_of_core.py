@@ -39,6 +39,8 @@ from torch import Tensor
 
 from ..core.backends import (KernelOps, landmark_cholesky, ops_for_config,
                              score_pass_core)
+from ..core.bless import (bless_dict_size, bless_grid, bless_overestimate,
+                          injected_dictionary, widen_bless_accum)
 from ..core.leverage import draw_landmarks
 from ..core.nystrom import ColumnSample, draw_columns
 from ..data.chunks import ChunkSource, gather_rows
@@ -47,9 +49,10 @@ from .config import SketchConfig
 from .samplers import streams
 
 # samplers the driver evaluates one chunk at a time. rls_exact needs the
-# full n×n Gram (an in-memory diagnostic); bless, the reference's fourth,
-# is not ported (ROADMAP item 7)
-CHUNKABLE_SAMPLERS = ("uniform", "diagonal", "rls_fast")
+# full n×n Gram and recursive_rls re-scores the rows level by level in
+# memory (both in-memory diagnostics); every bless stage is one more chunked
+# score pass against a small dictionary (_bless_scores_from_source)
+CHUNKABLE_SAMPLERS = ("uniform", "diagonal", "rls_fast", "bless")
 
 # solvers whose accumulators touch X only through kernel blocks (O(p²)
 # statistics) — the ones CSR chunks can feed; ``exact`` and ``eigenpro``
@@ -142,6 +145,45 @@ def chunked_score_pass(config: SketchConfig, source: ChunkSource, Z: Tensor,
     return scores, torch.cat(r_parts)
 
 
+def _bless_scores_from_source(config: SketchConfig, source: ChunkSource,
+                              diag: Tensor, n: int, gen: torch.Generator, *,
+                              dictionaries=None) -> Tensor:
+    """The BLESS annealing loop over a chunk source, stage for stage the
+    out-of-core twin of ``core.bless.bless_leverage``: the same schedule,
+    dictionary sizes, overestimate, set draws (without replacement) from
+    ``gen`` and widened reductions; each stage's scores come from a
+    ``chunked_score_pass`` against the gathered dictionary rows (K3 on CSR
+    chunks, its landmarks prepared once a stage), so no array larger than
+    O(chunk_rows·q + q²) is live. ``dictionaries`` (one index tensor per
+    stage) replaces the draws; each must hold the stage's q_h rows."""
+    trace = float(torch.sum(diag))
+    lam_max = trace / n
+    grid = bless_grid(lam_max, config.lam * config.eps, n,
+                      config.bless_stages, config.bless_oversample,
+                      None if dictionaries is None else len(dictionaries))
+    q_cap = min(config.score_pass_p, n)
+    probs = diag / trace
+    d_eff, prev_lam, q_prev = 1.0, lam_max, 0
+    ops = widen_bless_accum(ops_for_config(config), diag.dtype)
+    scores = None
+    for h, lam_h in enumerate(grid):
+        # max(·, q_prev): dictionaries never shrink, as in memory
+        q_h = max(bless_dict_size(d_eff, max(prev_lam / lam_h, 1.0),
+                                  config.bless_oversample, n, q_cap,
+                                  d_eff_cap=lam_max / lam_h), q_prev)
+        q_prev = q_h
+        idx = injected_dictionary(dictionaries, h, lam_h, q_h)
+        if idx is None:
+            idx = draw_landmarks(gen, probs, q_h, False)
+        Z = _cast_chunk(config, gather_rows(source, idx.cpu().numpy()))
+        scores, row_sq = chunked_score_pass(config, source, Z, n, lam_h,
+                                            ops=ops)
+        over = bless_overestimate(scores, diag, row_sq, n, lam_h)
+        probs = over / torch.sum(over)
+        d_eff, prev_lam = float(torch.sum(over)), lam_h
+    return scores
+
+
 def sample_from_source(config: SketchConfig, source: ChunkSource,
                        gens: tuple[torch.Generator, torch.Generator], *,
                        landmarks: Tensor | None = None,
@@ -151,8 +193,9 @@ def sample_from_source(config: SketchConfig, source: ChunkSource,
     sampler's draws: the score landmarks from ``gens[0]`` (``min(p_scores,
     n)`` of them, with replacement, from K_ii/Tr(K)), the columns from
     ``gens[1]``. ``landmarks`` and ``sample`` replace those draws with
-    given ones, as the in-memory ``fit`` allows. Returns (column sample,
-    unnormalized scores, row count)."""
+    given ones, as the in-memory ``fit`` allows (for ``bless``,
+    ``landmarks`` is the list of per-stage dictionaries). Returns (column
+    sample, unnormalized scores, row count)."""
     name = config.sampler
     if name not in CHUNKABLE_SAMPLERS:
         raise ValueError(
@@ -164,6 +207,9 @@ def sample_from_source(config: SketchConfig, source: ChunkSource,
         scores = torch.ones_like(diag)
     elif name == "diagonal":
         scores = diag
+    elif name == "bless":  # λ-annealed chunked score passes
+        scores = _bless_scores_from_source(config, source, diag, n, gens[0],
+                                           dictionaries=landmarks)
     else:  # rls_fast: Theorem-4 landmarks → chunked score pass
         idx = landmarks
         if idx is None:

@@ -17,6 +17,7 @@ Registry entries → paper results:
   falkon_pcg          Nyström-preconditioned CG on the L_γ system
                                                     (core/distributed) —
                                                     tens of iterations.
+  dnc                 m-partition averaged KRR       §1 baseline (core/dnc).
 
 The two iterative entries converge to the ``nystrom_regularized`` β (the
 same landmark-space normal equations) and never factor more than a p×p
@@ -33,8 +34,9 @@ EigenPro draws its preconditioner's subsample from the third generator of
 ``samplers.streams(config.seed, 3)`` (the first two are the sampler's, and
 ``SeedSequence.spawn`` gives the same first two children at 2 and 3).
 
-The reference's divide-and-conquer and distributed solvers are ROADMAP
-items 7 and 9.
+``dnc`` draws its partitions from the third generator of
+``samplers.streams(config.seed, 3)`` (or takes them injected). The
+reference's distributed solver is ROADMAP item 9.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from torch import Tensor
 
 from ..core.backends import KernelOps, ops_for_config
 from ..core.distributed import falkon_pcg_from_stats, falkon_pcg_krr
+from ..core.dnc import DnCModel, dnc_fit, dnc_predict, dnc_predict_train
 from ..core.eigenpro import (auto_batch_rows, build_preconditioner,
                              eigenpro_fit, landmark_solve_dtypes,
                              make_chunk_grad, make_chunk_step,
@@ -362,6 +365,40 @@ class NystromRegularizedSolver:
 
 SOLVERS.register("nystrom")(NystromSolver())
 SOLVERS.register("nystrom_regularized")(NystromRegularizedSolver())
+
+
+# ----------------------------------------------------- divide and conquer
+
+class DnCState(NamedTuple):
+    model: DnCModel
+    X_train: Tensor
+
+
+class DnCSolver:
+    """Zhang-Duchi-Wainwright m-partition averaging (§1 baseline): one K1
+    Gram and one Cholesky per partition, ``config.partitions`` of them."""
+
+    needs_sample = False
+
+    def fit(self, config, X, y, sample, *, partitions=None):
+        model = dnc_fit(config.kernel, X, y, config.lam, config.partitions,
+                        streams(config.seed, 3)[2], partitions=partitions,
+                        ops=_ops(config))
+        return DnCState(model, X)
+
+    def predict(self, config, state, X_test):
+        return dnc_predict(config.kernel, state.X_train, state.model,
+                           X_test, ops=_ops(config))
+
+    def predict_train(self, config, state, X_train):
+        return dnc_predict_train(config.kernel, state.X_train, state.model,
+                                 ops=_ops(config))
+
+    def risk(self, config, state, f_star, noise_std):
+        return None  # no closed form: the estimator takes the empirical risk
+
+
+SOLVERS.register("dnc")(DnCSolver())
 
 
 # ------------------------------------------- iterative landmark-space fits

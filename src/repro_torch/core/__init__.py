@@ -16,3 +16,12 @@ from .nystrom import (ColumnSample, NystromApprox, draw_columns,
                       nystrom_factors, nystrom_regularized_factors)
 from .precision import (Precision, canonical_dtype_name, dtype_jitter_floor,
                         floored_jitter)
+from .dnc import (DnCModel, dnc_fit, dnc_kernel_evals, dnc_predict,
+                  dnc_predict_train)
+from .concentration import (bernstein_tail, beta_of_distribution, psi_matrix,
+                            sketch_deviation, theorem2_required_p)
+from .recursive_rls import (RecursiveRLSResult, recursive_ridge_leverage,
+                            sampling_beta)
+from .bless import (BlessResult, BlessStage, bless_dict_size,
+                    bless_lambda_schedule, bless_leverage,
+                    bless_overestimate)

@@ -261,7 +261,12 @@ class KernelOps:
         """l̃_i = B_i (BᵀB + nλI)^{-1} B_iᵀ; the Gram accumulates in
         ``accum_dtype`` under the policy."""
         acc = self._accum(B.dtype)
-        G = B.T @ B if acc is None else B.T.to(acc) @ B.to(acc)
+        if acc is None:
+            G = B.T @ B
+        else:
+            Bw = B.to(acc)          # one widened copy of B, not two
+            G = Bw.T @ Bw
+            del Bw
         return self.scores_given_gram(B, G, lam, n)
 
     def scores_given_gram(self, B: Tensor, G: Tensor, lam: float,

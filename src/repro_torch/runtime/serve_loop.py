@@ -1,11 +1,17 @@
-"""Serving runtime: lock-step continuous batching over the decode step.
+"""Serving runtime: lock-step continuous batching over the decode step,
+and the synchronous KRR micro-batcher.
 
-The port of ``runtime/serve_loop.py``'s LM half. ``make_serve_step``
-returns the one-token step; ``ServeEngine`` is the host-side loop that
-admits requests into free slots, feeds one token per slot per step
-(prompt tokens while a slot prefills, then its last generated token),
-decodes in lock-step and retires finished sequences. The reference's
-``KRRServeEngine`` belongs to the serve plane, ROADMAP item 10.
+``make_serve_step`` returns the one-token step; ``ServeEngine`` is the
+host-side loop that admits requests into free slots, feeds one token per
+slot per step (prompt tokens while a slot prefills, then its last
+generated token), decodes in lock-step and retires finished sequences.
+
+``KRRServeEngine`` is the KRR counterpart: a synchronous adapter over the
+serve plane's building blocks (``repro_torch.serve``) — requests queue
+through the shared ``FifoQueue`` and each ``step`` serves one fixed-size
+micro-batch from the engine's ``ModelSlot`` snapshot. Fill-or-timeout
+batching, deadlines and hot swap under load are
+``repro_torch.serve.AsyncServeEngine``'s.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from torch import Tensor
 from ..configs.base import ModelConfig
 from ..models import decode_step, init_decode_state
 from ..serve.queue import FifoQueue
+from ..serve.slot import ModelSlot
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
@@ -119,4 +126,72 @@ class ServeEngine:
                     req.done = True
                     self.finished.append(req)
                     self.slot_req[s] = None
+        return self.finished
+
+
+# ---------------------------------------------------- KRR prediction serving
+
+@dataclasses.dataclass
+class KRRRequest:
+    uid: int
+    x: np.ndarray                 # (dim,) query point
+    y_hat: float | None = None
+    done: bool = False
+
+
+class KRRServeEngine:
+    """Synchronous micro-batching adapter over the async serve plane.
+
+    Requests are queued on the host (``repro_torch.serve.FifoQueue``) and
+    drained ``batch_size`` at a time into the engine's published
+    ``ModelSlot`` snapshot: the same padded fixed-shape predict that
+    ``AsyncServeEngine`` serves through (on the card, one K1 launch a
+    micro-batch), and a ``publish`` of a refreshed model swaps in
+    atomically between steps. With the model config's
+    ``precision.serve_dtype`` set, each micro-batch is served quantized;
+    the engine surfaces the active mode as ``self.serve_dtype``.
+    """
+
+    def __init__(self, model: Any, *, batch_size: int = 64):
+        # ``model`` is a fitted repro_torch.api.SketchedKRR; publishing it
+        # into the slot fails fast if it is unfitted
+        self.model = model
+        self._slot = ModelSlot(model)
+        entry = self._slot.current()
+        self.batch_size = -(-batch_size // entry.n_shards) * entry.n_shards
+        self.serve_dtype: str | None = entry.serve_dtype
+        self.queue: FifoQueue[KRRRequest] = FifoQueue()
+        self.finished: list[KRRRequest] = []
+
+    def submit(self, req: KRRRequest) -> None:
+        """Queue one prediction request for the next micro-batches."""
+        self.queue.push(req)
+
+    def publish(self, model: Any) -> int:
+        """Hot-swap a refreshed model into the slot; the next ``step``
+        serves it. Returns the slot's new version."""
+        self.model = model
+        return self._slot.publish(model)
+
+    def step(self) -> list[KRRRequest]:
+        """Serve one micro-batch; returns the requests completed."""
+        batch = self.queue.take(self.batch_size)
+        if not batch:
+            return []
+        entry = self._slot.current()   # one snapshot per micro-batch
+        X = np.stack([np.asarray(r.x) for r in batch])
+        y = entry.predict_padded(X, self.batch_size)
+        for r, val in zip(batch, y):
+            r.y_hat = float(val)
+            r.done = True
+        self.finished.extend(batch)
+        return batch
+
+    def run(self, max_steps: int = 1_000) -> list[KRRRequest]:
+        """Serve micro-batches until the queue drains (or ``max_steps``);
+        returns every request finished over the engine's lifetime."""
+        for _ in range(max_steps):
+            if not len(self.queue):
+                break
+            self.step()
         return self.finished

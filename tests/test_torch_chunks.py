@@ -227,9 +227,11 @@ def test_unported_and_unchunkable_entries_are_refused():
     X, y = _problem()
     with pytest.raises(ValueError, match="cannot run out-of-core"):
         SketchedKRR(_cfg(sampler="rls_exact", chunk_rows=CHUNK)).fit(X, y)
-    for field, name, item in [("sampler", "bless", 7),
-                              ("solver", "dnc", 7),
-                              ("solver", "distributed", 9),
+    with pytest.raises(ValueError, match="cannot run out-of-core"):
+        SketchedKRR(_cfg(sampler="recursive_rls", chunk_rows=CHUNK)).fit(X, y)
+    with pytest.raises(ValueError, match="does not support out-of-core"):
+        SketchedKRR(_cfg(solver="dnc", chunk_rows=CHUNK)).fit(X, y)
+    for field, name, item in [("solver", "distributed", 9),
                               ("backend", "sharded", 9)]:
         with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
             _cfg(**{field: name, "chunk_rows": CHUNK})

@@ -40,7 +40,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.api.out_of_core, repro_torch.data.chunks, "
             "repro_torch.data.sparse, repro_torch.kernels.sparse_block, "
             "repro_torch.configs, repro_torch.models, repro_torch.serve, "
-            "repro_torch.runtime, repro_torch.launch.serve\n"
+            "repro_torch.runtime, repro_torch.launch.serve, "
+            "repro_torch.core.bless, repro_torch.core.recursive_rls, "
+            "repro_torch.core.dnc, repro_torch.core.concentration, "
+            "repro_torch.serve.queue, repro_torch.serve.slot, "
+            "repro_torch.serve.engine, repro_torch.serve.refresh\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -371,8 +371,6 @@ def test_config_fields_are_validated():
             _port(**{field: 0})
     for kind, names in NOT_PORTED.items():
         assert not {"eigenpro", "falkon_pcg", "streaming"} & set(names)
-    for field, name in [("solver", "dnc"), ("solver", "distributed"),
-                        ("backend", "sharded"), ("sampler", "bless"),
-                        ("sampler", "recursive_rls")]:
+    for field, name in [("solver", "distributed"), ("backend", "sharded")]:
         with pytest.raises(ValueError, match="ROADMAP item"):
             _port(**{field: name})
