@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA GPU
 
-Drives ``repro_torch`` (never the JAX package) through thirteen phases and
+Drives ``repro_torch`` (never the JAX package) through fourteen phases and
 exits non-zero on any failure:
 
   1. build     compile the CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -100,7 +100,21 @@ exits non-zero on any failure:
                chunked attention, decode_step against the prefill at 64
                tokens, and ServeEngine(slots=4, max_len=1024) answering 8
                requests of 32 new tokens.
- 13. summary   each kernel's time at its path's shapes (CUDA events), its
+ 13. train     LM training: (a) phi4-mini-3.8b at its published widths,
+               float32 master weights from seed 0, bf16 compute,
+               use_pallas, remat="full": 4 make_train_step steps of AdamW
+               (lr 3e-4, warmup 2 of 8) on lm_batch at 8 x 512 tokens, K4
+               launches counted each step (the forward and the recompute of
+               every layer), ms a step, tokens/s, model FLOPs utilisation,
+               peak memory, then one profiled step and the LM head alone;
+               (b) K4 under autograd at (8, 24, 512, 128) bf16 causal: the
+               forward within K4's tolerance, dq, dk, dv bit-equal to the
+               plain version's autograd, forward and backward timed;
+               (c) the launcher's path at build_small_cfg (float32, K4's
+               SIMT instance) under TrainDriver, 12 steps with checkpoints
+               every 4, uninterrupted and with a StepFailure at step 6: one
+               restart, the losses equal to the uninterrupted run's.
+ 14. summary   each kernel's time at its path's shapes (CUDA events), its
                plain version's, the matching PyTorch library call's, and
                its bound; one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
@@ -108,11 +122,12 @@ exits non-zero on any failure:
 ``--phases`` runs a subset (``build,k3,sparse`` is the short call for the
 sparse path, ``build,iter`` for the iterative and streaming paths (it
 makes its own data; ``build,iter,summary`` adds K1's rows at their
-shapes), ``build,k4,lm,summary`` for the LM, ``build,k2,k4,summary`` for
+shapes), ``build,k4,lm,summary`` for the LM, ``build,k4,train,summary``
+for training, ``build,k2,k4,summary`` for
 the kernel checks and K2 / K4 rows alone, ``build,k1,k3,summary`` for
 K1's and K3's checks and rows, ``build,samplers`` and ``build,serve`` for
 this slice's paths (each makes its own data and models; add ``summary`` for
-their rows)); the default runs all thirteen. ``limits``, run
+their rows)); the default runs all fourteen. ``limits``, run
 only when named (``build,limits``), measures K2's 3xTF32 error at p = 2048,
 4096 and 8192 below the wrapper (which refuses p > 2048 in that build) and
 K1's float32 linear kind against ``torch.matmul`` at d = 16 and 256.
@@ -129,7 +144,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "k1", "k2", "k3", "k4", "main", "parity", "sparse",
-          "iter", "samplers", "serve", "lm", "summary")
+          "iter", "samplers", "serve", "lm", "train", "summary")
 # run only when named: the measurements behind two limits that PERF.md
 # states, K2's TF32X3_MAX_P and K1's float32 product rate
 OPT_IN = ("limits",)
@@ -252,6 +267,20 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 4, 1024, 8, 32
 # 99 % of the positions or more (a position whose top two logits lie closer
 # than the rounding can flip)
 LM_LOGIT_RTOL, LM_ARGMAX_AGREE = 2.0 ** -4, 0.99
+# phase train (a): the LM cell's model trained at the launcher's batch and
+# length, float32 masters, bf16 compute, every layer rematerialised
+# (remat="dots" would keep about 7.2 GB more of matrix products), AdamW at
+# lr 3e-4 warming up over 2 of 8 scheduled steps; running out of memory
+# fails the phase
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
+# (c): the launcher's path at build_small_cfg under TrainDriver, a
+# checkpoint every 4 steps, one injected failure
+TRAIN_DRIVER_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 6
+# (c) holds the restarted run's losses to the clean run's bit for bit when
+# the step is deterministic; else (an op whose sums land in another order
+# from run to run) within this relative difference
+TRAIN_LOSS_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -693,10 +722,16 @@ def _k4_check(q, k, v, causal: bool, window: int) -> tuple[float, float]:
     """K4 against its plain version on one input: (max |Δ|, the largest
     share of its tolerance that an element uses); fails past the
     tolerance of q's dtype."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    return _k4_held(flash_attention(q, k, v, causal=causal, window=window),
+                    q, k, v, causal, window)
+
+
+def _k4_held(got, q, k, v, causal: bool, window: int) -> tuple[float, float]:
+    """``got`` (K4's output on q, k, v) against the plain version, as
+    ``_k4_check`` holds it."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
-    got = flash_attention(q, k, v, causal=causal, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     check(got.dtype == q.dtype and got.shape == q.shape,
@@ -2169,6 +2204,333 @@ def phase_lm(res: dict, keep: dict) -> None:
     keep["lm"] = True
 
 
+def _train_config():
+    """The LM cell's model as phase train (a) trains it."""
+    import dataclasses
+    return dataclasses.replace(_lm_config(), remat="full")
+
+
+def _train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step (forward and backward, no
+    recompute): 6·N·T for the N parameters (the tied table as the head)
+    over T tokens, plus causal attention's 6·b·s²·H·dh per layer (half of
+    QKᵀ and PV, times three)."""
+    return (6 * cfg.n_params() * batch * seq
+            + 6 * batch * seq * seq * cfg.n_heads * cfg.resolved_head_dim
+            * cfg.n_layers)
+
+
+def _train_profile(run) -> dict:
+    """One ``run()`` under torch.profiler: device time by kernel and by
+    part (K4, the attention backward, the GEMMs, the optimizer's foreach
+    kernels, the rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e, own=True):
+        name = "self_device_time_total" if own else "device_time_total"
+        return getattr(e, name, getattr(e, name.replace("device", "cuda"),
+                                        0.0))
+
+    kernels, attn_bwd = [], 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            if dev_us(e) > 0:
+                kernels.append((e.key, dev_us(e), e.count))
+        elif e.key.endswith("_AttentionBackward"):
+            # the autograd node's own range and the engine's range around
+            # it both hold its kernels: take the larger, not the sum
+            attn_bwd = max(attn_bwd, dev_us(e, own=False))
+    kernels.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in kernels)
+    parts = {"k4": 0.0, "gemm": 0.0, "foreach": 0.0, "other": 0.0}
+    for name, us, _ in kernels:
+        low = name.lower()
+        if "flash_fwd" in low:
+            parts["k4"] += us
+        elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass",
+                                    "sm90_", "splitk")):
+            parts["gemm"] += us
+        elif "multi_tensor_apply" in low:
+            parts["foreach"] += us
+        else:
+            parts["other"] += us
+    return dict(wall_us=wall_us, busy_us=busy, parts_us=parts,
+                attention_backward_us=attn_bwd,
+                launches=sum(r[2] for r in kernels),
+                kernels=[dict(name=k[:90], device_us=us, calls=c)
+                         for k, us, c in kernels[:15]])
+
+
+def _train_full_width(out: dict, batch: int) -> None:
+    """(a) at ``batch``: TRAIN_STEPS steps, then one profiled step."""
+    import numpy as np
+    import torch
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import init_train_state, make_train_step
+    cfg = _train_config()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=cfg.param_dtype)
+    opt_state, comp_state = init_train_state(cfg, params)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    step_fn = make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
+    data = LMDataConfig(cfg.vocab_size, TRAIN_SEQ, batch)
+    flops = _train_flops(cfg, batch, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(TRAIN_STEPS):
+        b = lm_batch(data, i)
+        kops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = step_fn(params, opt_state, comp_state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        params, opt_state, comp_state = o.params, o.opt_state, o.comp_state
+        rows.append(dict(step=i + 1, s=wall, loss=float(o.metrics["loss"]),
+                         grad_norm=float(o.metrics["grad_norm"]),
+                         lr=float(o.metrics["lr"]),
+                         k4_launches=counts["flash_attention"],
+                         launches=counts))
+        log(f"[train] (a) step {i + 1}: {1e3 * wall:.1f} ms, loss "
+            f"{rows[-1]['loss']:.5f}, grad norm {rows[-1]['grad_norm']:.5f}, "
+            f"lr {rows[-1]['lr']:.3e}, K4 launches {counts['flash_attention']}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    steady = [r["s"] for r in rows[1:]]
+    ms = 1e3 * float(np.median(steady))
+    out.update(steps=rows, batch=batch, step_ms_median=ms,
+               step_ms_first=1e3 * rows[0]["s"],
+               tokens_per_s=batch * TRAIN_SEQ / (ms / 1e3), model_flops=flops,
+               mfu=flops / (ms / 1e3) / PEAK_OPS["bfloat16"],
+               k4_launches_per_step=rows[-1]["k4_launches"])
+    log(f"[train] (a) {batch} x {TRAIN_SEQ} tokens a step: median "
+        f"{ms:.1f} ms over steps 2-{TRAIN_STEPS} (first {out['step_ms_first']:.1f}"
+        f" ms) = {out['tokens_per_s']:.0f} tokens/s; model FLOPs "
+        f"{flops / 1e12:.2f} T a step (6·N·T, N = {cfg.n_params() / 1e9:.3f} "
+        f"B, + causal attention 6·b·s²·H·dh·L) = "
+        f"{100 * out['mfu']:.1f} % of the {PEAK_OPS['bfloat16'] / 1e12:.0f} "
+        f"TFLOP/s bf16 peak; peak device memory "
+        f"{out['peak_bytes'] / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; "
+        f"init {out['init_s']:.1f} s")
+    check(all(np.isfinite(r["loss"]) for r in rows), "non-finite loss")
+    check(all(r["grad_norm"] > 0 and np.isfinite(r["grad_norm"])
+              for r in rows), "a gradient norm is not positive and finite")
+    check(all(r["k4_launches"] == 2 * cfg.n_layers for r in rows),
+          f"K4 launched {[r['k4_launches'] for r in rows]} times a step "
+          f"(expected {2 * cfg.n_layers}: the forward and the remat "
+          "recompute of every layer)")
+    b = lm_batch(data, TRAIN_STEPS)
+    prof = _train_profile(lambda: step_fn(params, opt_state, comp_state, b))
+    out["profile"] = prof
+    parts = prof["parts_us"]
+    log(f"[train] (a) profiled step: device busy {prof['busy_us'] / 1e3:.1f}"
+        f" ms of {prof['wall_us'] / 1e3:.1f} ms wall, "
+        f"{prof['launches']} device operations: K4 {parts['k4'] / 1e3:.2f} "
+        f"ms, the attention backward (_AttentionBackward, its GEMMs "
+        f"included) {prof['attention_backward_us'] / 1e3:.2f} ms, GEMMs "
+        f"{parts['gemm'] / 1e3:.2f} ms, optimizer foreach kernels "
+        f"{parts['foreach'] / 1e3:.2f} ms, other {parts['other'] / 1e3:.2f} "
+        f"ms")
+    for row in prof["kernels"]:
+        log(f"[train]   {row['device_us'] / 1e3:9.2f} ms  x{row['calls']:<5d}"
+            f" {row['name']}")
+
+
+def _train_head(out: dict) -> None:
+    """(a)'s LM head alone, forward and backward at its shape: h (b·s,
+    d_model) bf16 against the float32 table (CUDA events)."""
+    import torch
+    from repro_torch.models.transformer import _ce_chunk
+    cfg = _train_config()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t = out["batch"] * TRAIN_SEQ
+    h = torch.randn((t, cfg.d_model), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    table = (0.018 * torch.randn((cfg.padded_vocab, cfg.d_model),
+                                 generator=g, device="cuda")).requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size, (t,), generator=g,
+                           device="cuda")
+
+    def head():
+        loss = _ce_chunk(cfg, {"embed": {"table": table}}, h, labels)
+        return torch.autograd.grad(loss, (h, table))
+
+    out["head_ms"] = cuda_ms(head, reps=3)
+    log(f"[train] (a) the LM head at ({t}, {cfg.d_model}) x "
+        f"{cfg.padded_vocab}, forward and backward: {out['head_ms']:.2f} ms")
+
+
+def _train_k4_autograd(out: dict) -> None:
+    """(b) K4 under autograd at (a)'s attention shape, bf16, causal."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    cfg = _train_config()
+    B, Hq, Hkv, S, D = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ,
+                        cfg.resolved_head_dim)
+    q, k, v = (t.requires_grad_() for t in _k4_inputs(
+        (B, Hq, S, D), Hkv, torch.bfloat16, seed=11))
+    up = torch.randn((B, Hq, S, D), generator=torch.Generator(
+        device="cuda").manual_seed(12), device="cuda").to(torch.bfloat16)
+    kops.reset_launch_counts()
+    got = kops.attention(q, k, v, causal=True)
+    launches = kops.launch_counts()["flash_attention"]
+    check(launches == 1, f"ops.attention launched K4 {launches} times")
+    check(got.requires_grad, "ops.attention's output records no gradient")
+    err, share = _k4_held(got.detach(), q.detach(), k.detach(), v.detach(),
+                          True, 0)
+    grads = torch.autograd.grad(got, (q, k, v), up)
+    plain_in = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*plain_in, causal=True),
+                               plain_in, up)
+    equal = [bool(torch.equal(a, b)) for a, b in zip(grads, want)]
+    log(f"[train] (b) K4 under autograd at ({B}, {Hq}, {S}, {D}) bf16 causal "
+        f"(hkv {Hkv}): forward max|Δ| {err:.3e} ({share:.3f} of the "
+        f"tolerance), one launch; dq, dk, dv bit-equal to the plain "
+        f"version's autograd: {equal} (the backward differentiates the "
+        f"plain version on the saved inputs, so this checks the Function's "
+        f"wiring, not K4)")
+    check(all(equal), "K4's gradients differ from the plain version's")
+
+    fwd = cuda_ms(lambda: kops.attention(q.detach(), k.detach(), v.detach()),
+                  reps=10)
+    kept = kops.attention(q, k, v)
+    bwd = cuda_ms(lambda: torch.autograd.grad(kept, (q, k, v), up,
+                                              retain_graph=True), reps=5)
+    lib_out = F.scaled_dot_product_attention(
+        q, k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1),
+        is_causal=True)
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.detach(), k.detach().repeat_interleave(Hq // Hkv, 1),
+        v.detach().repeat_interleave(Hq // Hkv, 1), is_causal=True), reps=10)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (q, k, v), up, retain_graph=True), reps=5)
+    plain = cuda_ms(lambda: ref.flash_attention_ref(
+        q.detach(), k.detach(), v.detach()), reps=3)
+    pairs = B * Hq * S * (S + 1) // 2
+    bound, by = _bound_ms(4 * D * pairs, 2 * (2 * B * Hq + 2 * B * Hkv) * S
+                          * D, "bfloat16")
+    out["k4"] = dict(shape=[B, Hq, Hkv, S, D], max_abs_err=err,
+                     tolerance_share=share, grads_bit_equal=equal, ms=fwd,
+                     plain_ms=plain, bound_ms=bound, bound_by=by,
+                     library_ms=lib_fwd, backward_ms=bwd,
+                     library_backward_ms=lib_bwd)
+    log(f"[train] (b) per layer: K4 forward {fwd:.3f} ms (plain {plain:.3f} "
+        f"ms, scaled_dot_product_attention {lib_fwd:.3f} ms, bound "
+        f"{bound:.3f} ms, {by}); the backward through the plain version "
+        f"{bwd:.3f} ms (SDPA's backward, K/V expanded, {lib_bwd:.3f} ms)")
+
+
+def _train_driver(out: dict) -> None:
+    """(c) the launcher's driver at build_small_cfg through K4's SIMT
+    instance, uninterrupted and with one StepFailure."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import build_small_cfg, make_driver
+    from repro_torch.runtime import StepFailure
+    cfg = build_small_cfg(LM_ARCH, use_pallas=True)
+    shape = (TRAIN_BATCH, cfg.n_heads, TRAIN_SEQ, cfg.resolved_head_dim)
+    err, share = _k4_check(*_k4_inputs(shape, cfg.n_kv_heads, torch.float32,
+                                       seed=13), True, 0)
+    out["driver_k4"] = dict(shape=list(shape), hkv=cfg.n_kv_heads,
+                            max_abs_err=err, tolerance_share=share)
+    log(f"[train] (c) K4's SIMT instance at the driver's shape {shape} "
+        f"(hkv {cfg.n_kv_heads}) float32 causal: max|Δ| {err:.3e}, "
+        f"{share:.3f} of the tolerance (atol {K4_ATOL:g})")
+    runs = {}
+    for name, fail_at in (("clean", None), ("restart", TRAIN_FAIL_AT)):
+        fails = {fail_at}
+
+        def hook(step, fails=fails):
+            if step in fails:
+                fails.discard(step)
+                raise StepFailure(f"injected at step {step}")
+
+        with tempfile.TemporaryDirectory() as ckpt:
+            drv = make_driver(cfg, steps=TRAIN_DRIVER_STEPS,
+                              batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                              lr=TRAIN_OPT["lr"], ckpt_dir=ckpt,
+                              ckpt_every=TRAIN_CKPT_EVERY, device="cuda",
+                              fault_hook=hook)
+            kops.reset_launch_counts()
+            t0 = time.perf_counter()
+            drv.run()
+            torch.cuda.synchronize()
+            runs[name] = dict(
+                s=time.perf_counter() - t0, restarts=drv.restarts,
+                losses=[m["loss"] for m in drv.metrics_log],
+                launches=kops.launch_counts()["flash_attention"])
+        del drv
+    clean, rest = runs["clean"], runs["restart"]
+    replay = rest["losses"]
+    resumed = TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    want = clean["losses"][:TRAIN_FAIL_AT] + clean["losses"][resumed:]
+    exact = replay == want
+    rel = max(abs(a - b) / abs(b) for a, b in zip(replay, want))
+    out["driver"] = dict(runs, bit_equal=exact, max_rel=rel,
+                         cfg=dict(n_layers=cfg.n_layers, d_model=cfg.d_model,
+                                  n_params=cfg.n_params()))
+    log(f"[train] (c) {LM_ARCH} build_small_cfg ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_params() / 1e6:.1f} M parameters, "
+        f"float32, K4's SIMT instance at D = {cfg.resolved_head_dim}): "
+        f"TrainDriver over {TRAIN_DRIVER_STEPS} steps, checkpoints every "
+        f"{TRAIN_CKPT_EVERY}: clean {clean['s']:.1f} s ({clean['launches']} "
+        f"K4 launches), with a StepFailure at step {TRAIN_FAIL_AT} "
+        f"{rest['s']:.1f} s, {rest['restarts']} restart, resumed at step "
+        f"{resumed} ({rest['launches']} K4 launches); losses "
+        f"{clean['losses'][0]:.5f} -> {clean['losses'][-1]:.5f}; the "
+        f"restarted run's {len(replay)} losses "
+        f"{'bit-equal to' if exact else 'differ from'} the clean run's "
+        f"(max rel {rel:.3e})")
+    check(rest["restarts"] == 1, f"{rest['restarts']} restarts, expected 1")
+    check(len(rest["losses"]) == TRAIN_DRIVER_STEPS + TRAIN_FAIL_AT - resumed,
+          f"{len(rest['losses'])} steps run")
+    check(all(np.isfinite(clean["losses"])), "non-finite losses in (c)")
+    per_step = 2 * cfg.n_layers
+    check(clean["launches"] == per_step * TRAIN_DRIVER_STEPS
+          and rest["launches"] == per_step * len(rest["losses"]),
+          f"K4 launches {clean['launches']} / {rest['launches']}, expected "
+          f"{per_step} a step")
+    check(rel <= TRAIN_LOSS_RTOL, f"restart losses off by {rel:.3e}")
+
+
+def phase_train(res: dict, keep: dict) -> None:
+    """(a) phi4-mini-3.8b at full width, 4 AdamW steps; (b) K4 under
+    autograd; (c) the launcher's TrainDriver with one restart."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = res["train"] = dict(arch=LM_ARCH, seq=TRAIN_SEQ,
+                              held_bytes=torch.cuda.memory_allocated())
+    _train_full_width(out, TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    _train_head(out)
+    torch.cuda.empty_cache()
+    _train_k4_autograd(out)
+    torch.cuda.empty_cache()
+    _train_driver(out)
+    torch.cuda.empty_cache()
+    keep["train"] = True
+
+
 def _profile(run) -> dict:
     """Device time by kernel over one more ``run()`` (a fit and its
     predictions), under ``torch.profiler`` (CUPTI), and the device's busy
@@ -2564,6 +2926,32 @@ def _summary_attention(res: dict) -> dict:
                 bound_by=by, library_ms=lib_ms, library_fn=lib_fn)
 
 
+def _summary_train_attention(res: dict) -> dict:
+    """K4's row at the training shape of phase train (a), from (b)'s
+    measurements, with its launches in (a)'s steps and the backward
+    through the plain version beside it."""
+    tr = res["train"]
+    k = tr["k4"]
+    launches = sum(r["k4_launches"] for r in tr["steps"])
+    log(f"[summary] K4 training shape {tuple(k['shape'])} bf16 causal: "
+        f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, SDPA "
+        f"{k['library_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms "
+        f"({k['bound_by']}); {tr['k4_launches_per_step']} launches a step, "
+        f"{launches} in (a); backward {k['backward_ms']:.3f} ms a layer "
+        f"(SDPA's {k['library_backward_ms']:.3f} ms)")
+    return dict(name="flash_attention", shape="train (B, Hq, Hkv, S, D) = "
+                f"{tuple(k['shape'])} bf16 causal", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:97",
+                launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
+                plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                bound_by=k["bound_by"], library_ms=k["library_ms"],
+                library_fn="scaled_dot_product_attention(is_causal), K/V "
+                "expanded", launches_per_train_step=tr["k4_launches_per_step"],
+                backward_ms=k["backward_ms"],
+                library_backward_ms=k["library_backward_ms"])
+
+
 def phase_summary(res: dict, keep: dict) -> None:
     """The kernel rows of the paths this run drove."""
     rows = []
@@ -2578,6 +2966,8 @@ def phase_summary(res: dict, keep: dict) -> None:
         rows.append(_summary_sparse(res, keep))
     if "lm" in keep or "k4" in keep:
         rows.append(_summary_attention(res))
+    if "train" in keep:
+        rows.append(_summary_train_attention(res))
     if "samplers" in res or "serve" in res:
         rows.extend(_summary_slice7(res, keep))
     res["kernels"] = rows
@@ -2690,6 +3080,8 @@ def main() -> int:
             phase_serve(res, keep)
         elif name == "lm":
             phase_lm(res, keep)
+        elif name == "train":
+            phase_train(res, keep)
         elif name == "summary":
             phase_summary(res, keep)
         elif name == "limits":

@@ -6,9 +6,9 @@ exact published shape and registers it under its id, and ``--arch <id>``
 resolves through ``get_config``. ``act_dtype`` is a ``torch.dtype``.
 ``use_pallas`` keeps its name: in the port it routes exact attention
 through the attention kernel (K4 ``flash_attention`` on CUDA tensors, its
-plain version on CPU ones). The reference's training fields
-``param_dtype`` and ``remat`` are left out: the port holds its weights in
-``dtype`` and has no backward yet (ROADMAP item 12.2).
+plain version on CPU ones). ``param_dtype`` is the dtype training holds
+its master weights in (each weight is cast to ``dtype`` where it is used);
+``remat`` is the per-layer rematerialisation of ``models.transformer``.
 """
 from __future__ import annotations
 
@@ -77,7 +77,9 @@ class ModelConfig:
     rls_keep_recent: int = 128   # pinned recency window in KV compression
     # --- execution ---
     dtype: str = "bfloat16"
+    param_dtype: str = "float32"  # training's master weights
     use_pallas: bool = False     # exact attention through K4 (plain on CPU)
+    remat: str = "dots"          # none | dots | full
 
     @property
     def resolved_head_dim(self) -> int:

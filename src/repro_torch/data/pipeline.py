@@ -1,4 +1,12 @@
-"""Synthetic regression data for the port (numpy, made from a seed).
+"""Synthetic data for the port, made from a seed: the LM token stream and
+the KRR regression sets.
+
+The LM stream (``lm_batch``, ``lm_stream``) is counter-based, as the
+reference's: row r of step t is drawn from a ``torch.Generator`` seeded
+from (seed, t, r) alone, so a host's slice of rows equals those rows of
+the whole batch and the batch of step t is the same after a restart. torch
+cannot reproduce the reference's threefry draws: tests that compare the
+two inject the reference's batches.
 
 ``pumadyn_like`` is the reference's pumadyn-style nonlinear regression
 surrogate, bit for bit, with the input width as an argument so the same
@@ -8,7 +16,52 @@ the RCV1 text benchmark (Lewis et al., JMLR 2004) for the sparse path.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Iterator
+
 import numpy as np
+import torch
+from torch import Tensor
+
+
+# ------------------------------------------------------------- LM pipeline
+
+@dataclasses.dataclass(frozen=True)
+class LMDataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+
+def _row(cfg: LMDataConfig, step: int, row: int) -> Tensor:
+    """seq_len + 1 tokens of one row, from its own generator."""
+    key = np.random.SeedSequence([cfg.seed, step, row]).generate_state(
+        1, np.uint64)[0]
+    g = torch.Generator().manual_seed(int(key))
+    return torch.randint(0, cfg.vocab_size, (cfg.seq_len + 1,), generator=g)
+
+
+def lm_batch(cfg: LMDataConfig, step: int,
+             host_slice: slice | None = None) -> dict[str, Tensor]:
+    """Batch for ``step`` on the CPU: ``tokens`` and next-token ``labels``
+    (b, seq_len) int64; rows [host_slice] only when data-sharded by
+    host."""
+    rows = range(cfg.global_batch)[host_slice] if host_slice \
+        else range(cfg.global_batch)
+    toks = torch.stack([_row(cfg, step, r) for r in rows])
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def lm_stream(cfg: LMDataConfig, start_step: int = 0,
+              host_slice: slice | None = None) -> Iterator[dict[str, Tensor]]:
+    step = start_step
+    while True:
+        yield lm_batch(cfg, step, host_slice)
+        step += 1
+
+
+# ------------------------------------------------------- KRR regression
 
 
 def pumadyn_like(n: int, dim: int = 32, seed: int = 0, noise: float = 0.1,

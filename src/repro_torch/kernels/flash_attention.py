@@ -20,10 +20,13 @@ multiple of 256 (``attention_shapes`` raises otherwise, on either route).
 float32 and bfloat16 operands, head dims 32, 64 and 128; bf16 operands
 16-byte aligned (TMA reads them).
 
-No gradient: the reference's backward recomputes through its plain
-version, and training is ROADMAP item 12.2 — operands that require grad
-raise. This wrapper takes CUDA tensors only; ``repro_torch.kernels.ops``
-sends CPU tensors to ``ref.flash_attention_ref``.
+This wrapper is the forward alone and takes CUDA tensors only. Gradients
+go through ``repro_torch.kernels.ops.attention``: its autograd Function
+launches this wrapper on detached operands and, as the reference's
+``_bwd`` does, differentiates the plain ``ref.attention_ref`` in the
+backward (the reference has no backward kernel). Operands that require
+grad raise here, so that no caller drops the gradient silently. ``ops``
+also sends CPU tensors to ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -101,8 +104,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         raise ValueError(f"flash_attention is built for head dims "
                          f"{HEAD_DIMS}, got {D}")
     if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention has no backward on the card: "
-                           "training through K4 is ROADMAP item 12.2")
+        raise RuntimeError("flash_attention is the forward alone: take "
+                           "gradients through repro_torch.kernels.ops."
+                           "attention, whose backward recomputes through "
+                           "the plain version")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):

@@ -103,20 +103,51 @@ def sparse_landmarks(Z: Tensor, data_dtype: torch.dtype, *,
     return prepare_landmarks(Z.to(out), acc)
 
 
+class _Attention(torch.autograd.Function):
+    """K4 under autograd, the reference's ``custom_vjp``: the forward is K4
+    on CUDA operands (launched on detached copies of the views, so the
+    wrapper's refusal of grad-requiring operands stays for direct calls)
+    and its plain version on CPU ones; the backward recomputes through
+    ``ref.attention_ref`` and differentiates that, as the reference's
+    ``_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                window: int, scale: float) -> Tensor:
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        q, k, v = q.detach(), k.detach(), v.detach()
+        if _on_cuda(q, k, v):
+            return flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window, scale=scale)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        need = ctx.needs_input_grad[:3]
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ref.attention_ref(*ins, scale=ctx.scale or None,
+                                    causal=ctx.causal, window=ctx.window)
+            got = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], grad))
+        return (*(next(got) if n else None for n in need), None, None, None)
+
+
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
               window: int = 0, scale: float = 0.0) -> Tensor:
     """Exact GQA softmax attention, q (B, Hq, S, D) against k, v
     (B, Hkv, S, D) → (B, Hq, S, D) in q's dtype; ``window > 0`` is a
     sliding window, ``scale = 0`` means 1/√D. The Pallas wrapper's shape
     contract holds on both routes (``attention_shapes``). CUDA operands
-    launch K4 ``flash_attention``; CPU operands take its plain version."""
+    launch K4 ``flash_attention``; CPU operands take its plain version.
+    Differentiable: the backward recomputes through ``ref.attention_ref``
+    (``_Attention``)."""
     attention_shapes(q, k, v)
-    if _on_cuda(q, k, v):
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, window=window,
-                               scale=scale)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+    return _Attention.apply(q, k, v, causal, int(window), float(scale))
 
 
 def launch_counts() -> dict[str, int]:

@@ -8,33 +8,13 @@ card; ``--device cpu`` runs it on the CPU through the plain versions.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 
 import numpy as np
 
-from ..configs import get_config
 from ..models import init_model
 from ..models.attention import NYSTROM_TODO
 from ..runtime import Request, ServeEngine
-
-
-def build_small_cfg(arch: str, **over):
-    """~100M-scale variant of an arch (the reference's
-    ``launch/train.py::build_small_cfg``, without its moe / ssm / hybrid
-    reductions: ``init_model`` refuses those families)."""
-    cfg = get_config(arch)
-    small = dict(n_layers=min(cfg.n_layers, 8),
-                 d_model=512,
-                 n_heads=8 if cfg.n_heads else 0,
-                 n_kv_heads=max(1, min(cfg.n_kv_heads, 4)) if cfg.n_heads
-                 else 0,
-                 head_dim=64 if cfg.n_heads else 0,
-                 d_ff=1536 if cfg.d_ff else 0,
-                 vocab_size=min(cfg.vocab_size, 32_000),
-                 vocab_pad_multiple=128,
-                 dtype="float32")
-    small.update(over)
-    return dataclasses.replace(cfg, **small)
+from .train import build_small_cfg
 
 
 def main(argv: list[str] | None = None) -> list[Request]:

@@ -1,8 +1,9 @@
-"""The LM stack of the port: the dense family's prefill and decode."""
+"""The LM stack of the port: the dense family's prefill, decode and loss."""
 from .convert import params_from_reference
 from .transformer import (DecodeCaches, ForwardOut, decode_step, forward,
-                          forward_hidden, init_decode_state, init_model)
+                          forward_hidden, init_decode_state, init_model,
+                          loss_fn)
 
 __all__ = ["DecodeCaches", "ForwardOut", "decode_step", "forward",
-           "forward_hidden", "init_decode_state", "init_model",
+           "forward_hidden", "init_decode_state", "init_model", "loss_fn",
            "params_from_reference"]

@@ -37,10 +37,10 @@ def check_exact(cfg: ModelConfig) -> None:
         raise NotImplementedError(NYSTROM_TODO)
 
 
-def init_attention(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_attention(generator: torch.Generator, cfg: ModelConfig,
+                   dt: torch.dtype) -> dict:
     d, h, hk = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     dh = cfg.resolved_head_dim
-    dt = cfg.act_dtype
     return {
         "wq": truncated_normal_init(generator, (d, h, dh), d ** -0.5, dt),
         "wk": truncated_normal_init(generator, (d, hk, dh), d ** -0.5, dt),
@@ -65,9 +65,10 @@ def init_kv_cache(cfg: ModelConfig, layers: int, batch: int, max_len: int,
 
 
 def _project(x: Tensor, w: Tensor) -> Tensor:
-    """einsum("bsd,dhe->bshe", x, w) as one matrix product."""
+    """einsum("bsd,dhe->bshe", x, w) as one matrix product, w cast to x's
+    dtype."""
     d, h, e = w.shape
-    return (x @ w.reshape(d, h * e)).reshape(*x.shape[:-1], h, e)
+    return (x @ w.reshape(d, h * e).to(x.dtype)).reshape(*x.shape[:-1], h, e)
 
 
 def _qkv(params: dict, cfg: ModelConfig, x: Tensor,
@@ -82,9 +83,11 @@ def _qkv(params: dict, cfg: ModelConfig, x: Tensor,
 
 
 def _out_proj(params: dict, out: Tensor) -> Tensor:
-    """einsum("bshe,hed->bsd", out, wo) as one matrix product."""
+    """einsum("bshe,hed->bsd", out, wo) as one matrix product, wo cast to
+    out's dtype."""
     h, e, d = params["wo"].shape
-    return out.reshape(*out.shape[:2], h * e) @ params["wo"].reshape(h * e, d)
+    w = params["wo"].reshape(h * e, d).to(out.dtype)
+    return out.reshape(*out.shape[:2], h * e) @ w
 
 
 def attention_block(params: dict, cfg: ModelConfig, x: Tensor,

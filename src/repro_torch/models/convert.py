@@ -4,8 +4,9 @@
 dicts of numpy arrays (``jax.tree.map(np.asarray, params)``), whose
 "layers" leaves are stacked on a leading (L, …) axis, and returns the
 port's parameters: the same names, one dict per layer, weights in
-``cfg.dtype`` and norm scales in float32 (see ``transformer``). The tests
-use it so that both packages compute with the same weights.
+``dtype`` (``cfg.dtype`` by default, for serving; ``cfg.param_dtype`` for
+training) and norm scales in float32 (see ``transformer``). The tests use
+it so that both packages compute with the same weights.
 """
 from __future__ import annotations
 
@@ -13,17 +14,19 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.precision import to_dtype
 from ..device import resolve_device
 from .transformer import check_supported
 
 
 def params_from_reference(params_np: dict, cfg: ModelConfig,
-                          device="cuda") -> dict:
+                          device="cuda", dtype=None) -> dict:
     check_supported(cfg)
     dev = resolve_device(device)
+    weights = cfg.act_dtype if dtype is None else to_dtype(dtype)
 
     def leaf(name: str, a) -> torch.Tensor:
-        dt = torch.float32 if name == "scale" else cfg.act_dtype
+        dt = torch.float32 if name == "scale" else weights
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
             device=dev, dtype=dt)
 

@@ -1,9 +1,11 @@
 """Shared transformer building blocks, the port of ``models/layers.py``.
 
 Parameters are plain dicts of tensors, as the reference keeps them; every
-block is an ``init_*`` plus a pure function. Weights are held in the
-compute dtype (cast once when the model is built, see ``transformer``);
-norm scales stay float32, as the reference adds them in float32.
+block is an ``init_*`` plus a pure function. Each weight is cast to the
+activation dtype where it is used, as the reference does: serving holds
+its weights in that dtype already (the cast is then a no-op), training
+holds float32 masters (see ``transformer``). Norm scales stay float32, as
+the reference adds them in float32.
 """
 from __future__ import annotations
 
@@ -97,8 +99,9 @@ ACTIVATIONS = {"silu": F.silu,
 
 def mlp(params: dict, x: Tensor, *, activation: str = "silu") -> Tensor:
     act = ACTIVATIONS[activation]
-    up = act(x @ params["w_gate"]) * (x @ params["w_up"])
-    return up @ params["w_down"]
+    w = {k: params[k].to(x.dtype) for k in ("w_gate", "w_up", "w_down")}
+    up = act(x @ w["w_gate"]) * (x @ w["w_up"])
+    return up @ w["w_down"]
 
 
 # -------------------------------------------------------------- embeddings
@@ -109,13 +112,18 @@ def init_embedding(generator: torch.Generator, vocab_padded: int,
                                            d_model ** -0.5, dtype)}
 
 
-def embed(params: dict, tokens: Tensor) -> Tensor:
-    return params["table"][tokens.long()]
+def embed(params: dict, tokens: Tensor, dtype: torch.dtype) -> Tensor:
+    """The rows of ``tokens`` in ``dtype``. The reference casts the whole
+    table and then gathers; gathering first gives the same values without
+    a cast copy of the table, and its gradient sums repeated tokens in the
+    table's dtype rather than in ``dtype``."""
+    return params["table"][tokens.long()].to(dtype)
 
 
 def unembed(params: dict, x: Tensor, *, softcap: float = 0.0) -> Tensor:
     """Logits x·tableᵀ in x's dtype, then float32 (and the softcap)."""
-    return softcap_logits((x @ params["table"].T).float(), softcap)
+    return softcap_logits((x @ params["table"].to(x.dtype).T).float(),
+                          softcap)
 
 
 def softcap_logits(logits: Tensor, cap: float) -> Tensor:

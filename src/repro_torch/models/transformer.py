@@ -4,33 +4,41 @@
   alternating local windows (even layers local).
 
 Entry points:
-  init_model(cfg, generator, device=)         → params
-  forward(params, cfg, tokens)                → ForwardOut(logits, aux)
-  init_decode_state(cfg, batch, max_len)      → DecodeCaches
-  decode_step(params, cfg, tokens, state)     → logits, new state
+  init_model(cfg, generator, device=, dtype=)  → params
+  forward(params, cfg, tokens)                 → ForwardOut(logits, aux)
+  loss_fn(params, cfg, tokens, labels)         → scalar CE (training)
+  init_decode_state(cfg, batch, max_len)       → DecodeCaches
+  decode_step(params, cfg, tokens, state)      → logits, new state
 
 Parameters are plain dicts of tensors, with a Python list of per-layer
 dicts under "layers" (the reference stacks them on a leading axis for
-``lax.scan``; ``convert.params_from_reference`` unstacks). Weights are held
-in the compute dtype ``cfg.dtype``, cast once when the model is built,
-where the reference keeps float32 masters and casts them at every use: the
-numbers are identical, and phi4-mini-3.8b holds 7.7 GB of bf16 weights
-instead of 15.4 GB of float32 (training, which needs the masters, is not
-ported). Norm scales stay float32.
+``lax.scan``; ``convert.params_from_reference`` unstacks). Every weight is
+cast to the activation dtype ``cfg.dtype`` where it is used, as the
+reference does. Serving holds its weights in that dtype (``init_model``'s
+default), so the casts are no-ops and phi4-mini-3.8b holds 7.7 GB of bf16
+weights; training holds float32 masters (``dtype=cfg.param_dtype``), and
+a bf16 cast of a master equals the serving weight, so both compute the
+same forward. Norm scales stay float32.
+
+``forward`` and ``decode_step`` run under ``torch.no_grad``; ``loss_fn``
+takes gradients through ``forward_hidden``, each layer rematerialised as
+``cfg.remat`` says (``_remat``), the LM head chunked (``head_chunk``).
 
 The moe, ssm and hybrid families and the vision/audio front ends are
 ROADMAP item 12.3 and raise; so does Nyström-RLS attention (item 12.4).
-Everything runs under ``torch.no_grad``: there is no backward yet (item
-12.2).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..core.precision import to_dtype
 from ..device import resolve_device
 from .attention import (DecodeState, KVCache, attention_block, check_exact,
                         decode_attention_block, init_attention,
@@ -52,11 +60,12 @@ def check_supported(cfg: ModelConfig) -> None:
 
 # --------------------------------------------------------------------- init
 
-def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig,
+                      dt: torch.dtype) -> dict:
     dev = generator.device
     p = {
-        "attn": init_attention(generator, cfg),
-        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act_dtype),
+        "attn": init_attention(generator, cfg, dt),
+        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, dt),
         "ln1": init_rmsnorm(cfg.d_model, dev),
         "ln2": init_rmsnorm(cfg.d_model, dev),
     }
@@ -67,19 +76,21 @@ def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator | None = None, *,
-               device="cuda") -> dict:
+               device="cuda", dtype=None) -> dict:
     """Random weights with the reference's initialisers (truncated normal
     at ±3σ, the same standard deviations), drawn from ``generator`` (a
     ``torch.Generator`` on ``device``; default: seed 0) in float32 one
-    tensor at a time and cast to ``cfg.dtype``. torch's streams are not
-    JAX's: for the reference's own weights use ``params_from_reference``."""
+    tensor at a time and cast to ``dtype``: ``cfg.dtype`` by default (for
+    serving), ``cfg.param_dtype`` for training's masters. torch's streams
+    are not JAX's: for the reference's own weights use
+    ``params_from_reference``."""
     check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
-    dt = cfg.act_dtype
+    dt = cfg.act_dtype if dtype is None else to_dtype(dtype)
     params: dict = {
         "embed": init_embedding(generator, cfg.padded_vocab, cfg.d_model, dt),
         "ln_f": init_rmsnorm(cfg.d_model, dev),
@@ -87,7 +98,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None, *,
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(generator, cfg.padded_vocab,
                                            cfg.d_model, dt)
-    params["layers"] = [_init_dense_layer(generator, cfg)
+    params["layers"] = [_init_dense_layer(generator, cfg, dt)
                         for _ in range(cfg.n_layers)]
     return params
 
@@ -116,7 +127,7 @@ def _layer_windows(cfg: ModelConfig, n: int) -> list[int]:
 
 
 def _embed_tokens(params: dict, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    h = embed(params["embed"], tokens)
+    h = embed(params["embed"], tokens, cfg.act_dtype)
     # the scale is cast to the activation dtype first, as the reference
     # does: √3072 = 55.43 becomes 55.5 in bfloat16
     return h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
@@ -137,19 +148,46 @@ class HiddenOut(NamedTuple):
     aux_loss: Tensor
 
 
-@torch.no_grad()
+def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``dots`` remat: keep the outputs of the unbatched matrix products
+    (the projections and the MLP, ``aten.mm``), as the reference's
+    ``dots_with_no_batch_dims_saveable`` keeps its unbatched dot_generals;
+    recompute the rest (the norms, RoPE, attention, the activations)."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat`` (none | dots | full) when gradients are
+    being recorded: ``full`` keeps only its inputs and runs it again in the
+    backward, ``dots`` keeps the matrix products' outputs too
+    (``_save_matmuls``). The reference wraps its scan body the same way."""
+    if cfg.remat not in ("none", "dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, not "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
                    positions: Tensor | None = None) -> HiddenOut:
     """Backbone only (no LM head). tokens: (b, s) integers on the
-    parameters' device."""
+    parameters' device. Records gradients when grad mode is on (the loss
+    path), each layer under ``cfg.remat``."""
     check_supported(cfg)
     h = _embed_tokens(params, cfg, tokens)
     b, s, _ = h.shape
     if positions is None:
         positions = torch.arange(s, device=h.device).expand(b, s)
     windows = _layer_windows(cfg, len(params["layers"]))
+    block = _remat(cfg, _dense_block)
     for p, win in zip(params["layers"], windows):
-        h = _dense_block(cfg, p, h, positions, win)
+        h = block(cfg, p, h, positions, win)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return HiddenOut(rmsnorm(params["ln_f"], h, cfg.norm_eps), aux)
 
@@ -157,11 +195,51 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
 @torch.no_grad()
 def forward(params: dict, cfg: ModelConfig, tokens: Tensor,
             positions: Tensor | None = None) -> ForwardOut:
-    """Prefill/training forward: tokens (b, s) → float32 logits
-    (b, s, padded_vocab). With ``cfg.use_pallas`` every layer's attention
-    is one K4 launch on CUDA tensors."""
+    """Prefill forward: tokens (b, s) → float32 logits (b, s, padded_vocab).
+    With ``cfg.use_pallas`` every layer's attention is one K4 launch on
+    CUDA tensors."""
     h, aux = forward_hidden(params, cfg, tokens, positions)
     return ForwardOut(_head(params, cfg, h), aux)
+
+
+# ------------------------------------------------------------------- loss
+
+def _ce_chunk(cfg: ModelConfig, params: dict, h_c: Tensor,
+              labels_c: Tensor) -> Tensor:
+    """Summed cross-entropy over one token chunk; its logits never leave
+    the chunk. The target logit is taken with ``gather``, which equals the
+    reference's masked sum over the vocabulary exactly (that sum adds only
+    zeros besides the target)."""
+    logits = _head(params, cfg, h_c)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels_c.long()[:, None])[:, 0]
+    return torch.sum(lse - tgt)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
+            aux_weight: float = 0.01, head_chunk: int = 16_384) -> Tensor:
+    """Next-token cross-entropy (mean over tokens) with a sequence-chunked
+    LM head: the (tokens × vocab) float32 logits are the largest training
+    buffer at a 200k vocabulary, so the head runs ``head_chunk`` tokens at
+    a time (one chunk when the token count is not a multiple), each chunk
+    rematerialised in the backward. tokens, labels: (b, s) integers."""
+    hid = forward_hidden(params, cfg, tokens)
+    h = hid.h
+    b, s, d = h.shape
+    t = b * s
+    h2 = h.reshape(t, d)
+    lab = labels.reshape(t)
+    c = min(head_chunk, t)
+    if t % c:
+        c = t  # odd sizes: single chunk
+    if c == t:
+        total = _ce_chunk(cfg, params, h2, lab)
+    else:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for lo in range(0, t, c):
+            total = total + checkpoint(_ce_chunk, cfg, params, h2[lo:lo + c],
+                                       lab[lo:lo + c], use_reentrant=False)
+    return total / t + aux_weight * hid.aux_loss
 
 
 # ------------------------------------------------------------------ decode

@@ -111,9 +111,11 @@ def test_k4_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_k4_refuses_operands_that_require_grad(cuda):
+    """The wrapper is the forward alone: gradients go through
+    ``ops.attention`` (tests/test_torch_cuda_train.py)."""
     q, k, v = _qkv(1, 2, 1, 64, 32, seed=6, dtype=torch.float32)
-    with pytest.raises(RuntimeError, match="ROADMAP item 12.2"):
-        ops.attention(q.requires_grad_(), k, v)
+    with pytest.raises(RuntimeError, match="ops.attention"):
+        k4.flash_attention(q.requires_grad_(), k, v)
 
 
 def _cpu(tree):

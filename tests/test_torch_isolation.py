@@ -27,7 +27,8 @@ SCANNED = {"repro_torch": sorted(PORT.glob("*.py")),
            "chip_smoke.py": [ROOT / "chip_smoke.py"]}
 SCANNED.update({sub: sorted((PORT / sub).rglob("*.py"))
                 for sub in ("api", "core", "data", "kernels", "configs",
-                            "models", "serve", "runtime", "launch")})
+                            "models", "serve", "runtime", "launch", "optim",
+                            "checkpoint")})
 
 
 def _forbidden(module: str) -> bool:
@@ -44,7 +45,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.core.bless, repro_torch.core.recursive_rls, "
             "repro_torch.core.dnc, repro_torch.core.concentration, "
             "repro_torch.serve.queue, repro_torch.serve.slot, "
-            "repro_torch.serve.engine, repro_torch.serve.refresh\n"
+            "repro_torch.serve.engine, repro_torch.serve.refresh, "
+            "repro_torch.optim, repro_torch.checkpoint, "
+            "repro_torch.runtime.train_loop, "
+            "repro_torch.runtime.fault_tolerance, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
