@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA GPU
 
-Drives ``repro_torch`` (never the JAX package) through fourteen phases and
+Drives ``repro_torch`` (never the JAX package) through fifteen phases and
 exits non-zero on any failure:
 
   1. build     compile the CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -28,8 +28,10 @@ exits non-zero on any failure:
   5. k4        K4 ``flash_attention`` against its plain version, float32
                (SIMT) and bfloat16 (wgmma, TMA) x (hq, hkv) in {(8,8),
                (8,2), (4,1)} x {causal, non-causal, causal + window 64} x
-               S in {32, 96, 256, 512} x D in {32, 64, 128}, and at the
-               prefill's own shape (1, 24, 8192, 128), bfloat16, causal.
+               S in {32, 96, 256, 512} x D in {32, 64, 128} (and D = 112,
+               zamba2's, at (8,8) and (8,2)), and at the prefill shapes of
+               phases lm and families, (1, 24, 8192, 128), (1, 32, 8192,
+               112) and (1, 16, 8192, 128), bfloat16, causal.
   6. main      the paper's fit -> predict path at full size: MSD-shaped data
                (n = 463,715 train, 51,630 test, d = 90) from
                ``pumadyn_like(dim=90, seed=0)``, SketchConfig(RBFKernel(6.0),
@@ -114,7 +116,21 @@ exits non-zero on any failure:
                SIMT instance) under TrainDriver, 12 steps with checkpoints
                every 4, uninterrupted and with a StepFailure at step 6: one
                restart, the losses equal to the uninterrupted run's.
- 14. summary   each kernel's time at its path's shapes (CUDA events), its
+ 14. families  the moe, hybrid, ssm and audio families at their published
+               widths, bfloat16, use_pallas, random weights from seed 0,
+               one model at a time, each prefill of 1 x 8,192 with the
+               launch counts zeroed before and read after, timed, its peak
+               memory and profile: (a) deepseek-moe-16b (K4 28 times a
+               prefill), its parity against the plain chunked attention
+               where each token's routing agrees in every layer, and
+               ServeEngine(slots=4, max_len=1024) answering 8 requests of
+               32 new tokens; (b) zamba2-7b (K4 13 times, head dim 112),
+               parity, 64 decode steps against the prefill, the serve
+               engine, and one prompt served twice through one slot (the
+               same tokens both times); (c) mamba2-780m (no attention) and
+               musicgen-medium from embeddings (K4 48 times, the codebook
+               logits), each with 64 decode steps against the prefill.
+ 15. summary   each kernel's time at its path's shapes (CUDA events), its
                plain version's, the matching PyTorch library call's, and
                its bound; one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
@@ -123,11 +139,12 @@ exits non-zero on any failure:
 sparse path, ``build,iter`` for the iterative and streaming paths (it
 makes its own data; ``build,iter,summary`` adds K1's rows at their
 shapes), ``build,k4,lm,summary`` for the LM, ``build,k4,train,summary``
-for training, ``build,k2,k4,summary`` for
+for training, ``build,k4,families,summary`` for the moe, hybrid, ssm and
+audio families (K4's rows at their shapes), ``build,k2,k4,summary`` for
 the kernel checks and K2 / K4 rows alone, ``build,k1,k3,summary`` for
 K1's and K3's checks and rows, ``build,samplers`` and ``build,serve`` for
 this slice's paths (each makes its own data and models; add ``summary`` for
-their rows)); the default runs all fourteen. ``limits``, run
+their rows)); the default runs all fifteen. ``limits``, run
 only when named (``build,limits``), measures K2's 3xTF32 error at p = 2048,
 4096 and 8192 below the wrapper (which refuses p > 2048 in that build) and
 K1's float32 linear kind against ``torch.matmul`` at d = 16 and 256.
@@ -144,7 +161,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "k1", "k2", "k3", "k4", "main", "parity", "sparse",
-          "iter", "samplers", "serve", "lm", "train", "summary")
+          "iter", "samplers", "serve", "lm", "train", "families", "summary")
 # run only when named: the measurements behind two limits that PERF.md
 # states, K2's TF32X3_MAX_P and K1's float32 product rate
 OPT_IN = ("limits",)
@@ -249,6 +266,8 @@ SERVE_DEADLINE_MS = 5000.0
 # 2e-5 + 2^-8 plain(q, k, |v|), rtol 2^-7
 K4_ATOL, K4_BF16_RTOL, K4_BF16_P_ROUND = 2e-5, 2.0 ** -7, 2.0 ** -8
 K4_GQA = ((8, 8), (8, 2), (4, 1))
+# zamba2-7b's head dim (3584 over 32 heads), swept at these (hq, hkv)
+K4_D112, K4_D112_GQA = (112,), ((8, 8), (8, 2))
 K4_MASKS = ((True, 0), (False, 0), (True, 64))
 # the LM cell: phi4-mini-3.8b at its published widths, one prefill of
 # LM_SEQ tokens, and the serve engine's load
@@ -267,6 +286,21 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 4, 1024, 8, 32
 # 99 % of the positions or more (a position whose top two logits lie closer
 # than the rounding can flip)
 LM_LOGIT_RTOL, LM_ARGMAX_AGREE = 2.0 ** -4, 0.99
+# phase families: the moe, hybrid, ssm and audio cells at their published
+# widths
+MOE_ARCH, ZAMBA_ARCH = "deepseek-moe-16b", "zamba2-7b"
+MAMBA_ARCH, AUDIO_ARCH = "mamba2-780m", "musicgen-medium"
+# decode against prefill of the SSM cells, max |Δ| over the largest logit:
+# the prefill's chunked SSD (its Gram, decay and diagonal term in bf16)
+# and the decode steps' float32 recurrence round at different places, and
+# the difference grows with depth. The JAX package does the same at these
+# widths (on the CPU, tools/ssm_decode_parity_probe.py: zamba2 cut to
+# 6 / 12 / 24 layers 0.0176 / 0.0307 / 0.0436, mamba2 cut to 12 / 24
+# 0.0379 / 0.0455, the port 0.0159 / 0.0302 / 0.0367 and 0.0303 / 0.0506);
+# it grows more slowly than the depth. The bound: the reference's at 24
+# layers, grown linearly to the cell's depth (0.147 and 0.091); the other
+# cells keep LM_LOGIT_RTOL
+SSM_DECODE_RTOL = {ZAMBA_ARCH: 0.0436 * 81 / 24, MAMBA_ARCH: 0.0455 * 48 / 24}
 # phase train (a): the LM cell's model trained at the launcher's batch and
 # length, float32 masters, bf16 compute, every layer rematerialised
 # (remat="dots" would keep about 7.2 GB more of matrix products), AdamW at
@@ -764,27 +798,35 @@ def phase_k4(res: dict, keep: dict) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for hq, hkv in K4_GQA:
+            dims = (32, 64, 128) + (K4_D112 if (hq, hkv) in K4_D112_GQA
+                                    else ())
             for causal, window in K4_MASKS:
                 err = share = 0.0
                 for s in (32, 96, 256, 512):
-                    for d in (32, 64, 128):
+                    for d in dims:
                         q, k, v = _k4_inputs((2, hq, s, d), hkv, dtype,
                                              seed=s + d + hq)
                         e, f = _k4_check(q, k, v, causal, window)
                         err, share = max(err, e), max(share, f)
                 log(f"[k4] {name} (hq,hkv)=({hq},{hkv}) causal={causal} "
-                    f"window={window}, S in 32/96/256/512, D in 32/64/128: "
-                    f"max|Δ|={err:.3e}, {share:.3f} of the tolerance")
+                    f"window={window}, S in 32/96/256/512, D in "
+                    f"{'/'.join(map(str, dims))}: max|Δ|={err:.3e}, "
+                    f"{share:.3f} of the tolerance")
                 worst[name] = max(worst.get(name, 0.0), err)
                 shares[name] = max(shares.get(name, 0.0), share)
-    cfg = _lm_config()
-    shape = (1, cfg.n_heads, LM_SEQ, cfg.resolved_head_dim)
-    q, k, v = _k4_inputs(shape, cfg.n_kv_heads, torch.bfloat16, seed=7)
-    err, share = _k4_check(q, k, v, True, 0)
-    log(f"[k4] bfloat16 prefill shape {shape} (hkv {cfg.n_kv_heads}) causal: "
-        f"max|Δ|={err:.3e}, {share:.3f} of the tolerance (atol {K4_ATOL:g} + "
-        f"{K4_BF16_P_ROUND:g}·plain(q, k, |v|), + {K4_BF16_RTOL:g}·|want|)")
-    worst["prefill_shape"], shares["prefill_shape"] = err, share
+    # the prefill shapes of phases lm and families, bfloat16, causal
+    for tag, cfg in (("prefill_shape", _lm_config()),
+                     ("zamba2_prefill_shape", _family_config(ZAMBA_ARCH)),
+                     ("deepseek_prefill_shape", _family_config(MOE_ARCH))):
+        shape = (1, cfg.n_heads, LM_SEQ, cfg.resolved_head_dim)
+        q, k, v = _k4_inputs(shape, cfg.n_kv_heads, torch.bfloat16, seed=7)
+        err, share = _k4_check(q, k, v, True, 0)
+        log(f"[k4] bfloat16 {cfg.name} prefill shape {shape} (hkv "
+            f"{cfg.n_kv_heads}) causal: max|Δ|={err:.3e}, {share:.3f} of the "
+            f"tolerance (atol {K4_ATOL:g} + {K4_BF16_P_ROUND:g}·plain(q, k, "
+            f"|v|), + {K4_BF16_RTOL:g}·|want|)")
+        worst[tag], shares[tag] = err, share
+        del q, k, v
     res["k4_check_max_abs_err"] = worst
     res["k4_check_max_tolerance_share"] = shares
     keep["k4"] = True
@@ -2014,6 +2056,14 @@ def _lm_config():
                                dtype="bfloat16")
 
 
+def _family_config(arch: str):
+    """A family cell's published config as phase families serves it."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), use_pallas=True,
+                               dtype="bfloat16")
+
+
 def _logit_parity(got, want) -> dict:
     """max |Δ| against the largest |logit|, and the share of positions
     whose arg-max agrees; (..., vocab) float32 logits."""
@@ -2031,7 +2081,6 @@ def phase_lm(res: dict, keep: dict) -> None:
     from repro_torch.kernels import ops as kops
     from repro_torch.models import (decode_step, forward, init_decode_state,
                                     init_model)
-    from repro_torch.runtime import Request, ServeEngine
     cfg = _lm_config()
     out = res["lm"] = dict(arch=LM_ARCH, seq=LM_SEQ, dtype=cfg.dtype,
                            n_params=cfg.n_params())
@@ -2134,7 +2183,22 @@ def phase_lm(res: dict, keep: dict) -> None:
         check(dec["argmax_agree"] == 1.0, "decode and prefill pick different "
               "greedy tokens")
 
-    # serving: 8 requests through 4 slots
+    # serving: 8 requests through 4 slots, then where a step's time goes
+    out["serve"] = _serve_run("lm", cfg, params, rng)
+    out["serve"]["profile"] = _decode_profile("lm", cfg, params, LM_SLOTS)
+    del params
+    torch.cuda.empty_cache()
+    keep["lm"] = True
+
+
+def _serve_run(tag: str, cfg, params, rng) -> dict:
+    """``ServeEngine(slots=LM_SLOTS, max_len=LM_MAX_LEN)`` answering
+    LM_REQUESTS requests of LM_NEW new tokens (prompts of 16-128 tokens
+    from ``rng``), each step timed to its synchronise; fails unless every
+    request is answered in full."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import Request, ServeEngine
     engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
     step_ms = []
     step_fn = engine.step_fn
@@ -2156,32 +2220,47 @@ def phase_lm(res: dict, keep: dict) -> None:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     generated = sum(len(r.generated) for r in done)
-    kv_bytes = 2 * engine.caches.kv.k.numel() * engine.caches.kv.k.element_size()
-    out["serve"] = dict(requests=len(done), steps=engine.steps,
-                        prompt_lengths=[int(n) for n in lengths],
-                        generated=generated, seconds=serve_s,
-                        generated_per_s=generated / serve_s,
-                        median_step_ms=float(np.median(step_ms)),
-                        kv_cache_bytes=kv_bytes)
-    log(f"[lm] ServeEngine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}): "
+    caches = engine.caches
+    cache_bytes = sum(t.numel() * t.element_size() for part in
+                      (caches.kv, caches.ssm) if part is not None
+                      for t in part)
+    out = dict(requests=len(done), steps=engine.steps,
+               prompt_lengths=[int(n) for n in lengths],
+               generated=generated, seconds=serve_s,
+               generated_per_s=generated / serve_s,
+               median_step_ms=float(np.median(step_ms)),
+               kv_cache_bytes=cache_bytes)
+    log(f"[{tag}] ServeEngine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}): "
         f"{len(done)}/{LM_REQUESTS} requests (prompts of "
         f"{int(lengths.min())}-{int(lengths.max())} tokens), {engine.steps} "
         f"steps in {serve_s:.2f} s, {generated} tokens generated = "
         f"{generated / serve_s:.1f} tokens/s, median step "
-        f"{np.median(step_ms):.2f} ms, KV cache {kv_bytes / 1e9:.2f} GB")
+        f"{np.median(step_ms):.2f} ms, caches {cache_bytes / 1e9:.2f} GB")
     check(len(done) == LM_REQUESTS and all(
         len(r.generated) == LM_NEW for r in done),
-        f"served {len(done)} of {LM_REQUESTS} requests")
+        f"{tag}: served {len(done)} of {LM_REQUESTS} requests")
+    return out
 
-    # where a serve step's time goes: four decode steps of the engine's
-    # batch, unprofiled then under the profiler
-    st0 = init_decode_state(cfg, LM_SLOTS, 8, device="cuda")
-    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device="cuda")
+
+def _decode_profile(tag: str, cfg, params, slots: int) -> dict:
+    """Where a decode step's time goes: four decode steps of ``slots``
+    slots, unprofiled then under the profiler (the device's busy share of
+    the unprofiled wall)."""
+    import torch
+    from repro_torch.models import decode_step, init_decode_state
+    st0 = init_decode_state(cfg, slots, 8, device="cuda")
+    if cfg.modality in ("vision", "audio"):
+        emb = torch.zeros((slots, 1, cfg.d_model), dtype=cfg.act_dtype,
+                          device="cuda")
+        inputs = dict(tokens=None, embeds=emb)
+    else:
+        inputs = dict(tokens=torch.zeros((slots, 1), dtype=torch.int32,
+                                         device="cuda"))
 
     def four_steps():
         st = st0
         for _ in range(4):
-            _, st = decode_step(params, cfg, tok, st)
+            _, st = decode_step(params, cfg, state=st, **inputs)
 
     four_steps()
     torch.cuda.synchronize()
@@ -2190,18 +2269,16 @@ def phase_lm(res: dict, keep: dict) -> None:
     torch.cuda.synchronize()
     wall4 = time.perf_counter() - t0
     prof = _profile(four_steps)
+    prof["wall_s"] = wall4
     prof["busy_share_of_unprofiled_wall"] = prof["busy_us"] / 1e6 / wall4
-    out["serve"]["profile"] = prof
-    log(f"[lm] 4 decode steps of {LM_SLOTS} slots: {1e3 * wall4:.1f} ms, "
+    log(f"[{tag}] 4 decode steps of {slots} slots: {1e3 * wall4:.1f} ms, "
         f"device busy {prof['busy_us'] / 1e3:.2f} ms = "
         f"{100 * prof['busy_share_of_unprofiled_wall']:.1f} % of it, "
         f"{prof['launches']} device operations")
     for row in prof["kernels"][:8]:
-        log(f"[lm]   {row['device_us'] / 1e3:9.3f} ms  x{row['calls']:<4d} "
+        log(f"[{tag}]   {row['device_us'] / 1e3:9.3f} ms  x{row['calls']:<4d} "
             f"{row['name']}")
-    del engine, params
-    torch.cuda.empty_cache()
-    keep["lm"] = True
+    return prof
 
 
 def _train_config():
@@ -2529,6 +2606,430 @@ def phase_train(res: dict, keep: dict) -> None:
     _train_driver(out)
     torch.cuda.empty_cache()
     keep["train"] = True
+
+
+# ------------------------------------------------------- the LM families
+
+def _family_model(tag: str, cfg, out: dict):
+    """Random bf16 weights from seed 0 on the card, with their size."""
+    import gc
+
+    import torch
+    from repro_torch.models import init_model
+    gc.collect()     # an engine in a reference cycle may hold the last model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    out.update(arch=cfg.name, n_params=cfg.n_params(), held_bytes=held,
+               init_s=time.perf_counter() - t0,
+               param_bytes=torch.cuda.memory_allocated() - held)
+    log(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+        f"{cfg.n_params() / 1e9:.3f} B parameters: "
+        f"{out['param_bytes'] / 1e9:.2f} GB of {cfg.dtype} weights made in "
+        f"{out['init_s']:.1f} s")
+    return params
+
+
+def _family_prefill(tag: str, cfg, params, inputs: dict, k4: int,
+                    out: dict):
+    """The cell's prefill of 1 x LM_SEQ: a first run, then the measured run
+    with the launch counts zeroed just before and read just after (K4
+    ``k4`` times), its peak memory above the weights, its profile. Returns
+    the logits."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import forward
+    t0 = time.perf_counter()
+    forward(params, cfg, **inputs)
+    torch.cuda.synchronize()
+    out["first_prefill_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = forward(params, cfg, **inputs).logits
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    out.update(prefill_s=wall, tokens_per_s=LM_SEQ / wall, launches=counts,
+               peak_bytes=torch.cuda.max_memory_allocated() - base,
+               logits_shape=list(logits.shape))
+    log(f"[{tag}] prefill 1 x {LM_SEQ}: {wall:.3f} s = {LM_SEQ / wall:.0f} "
+        f"tokens/s (first run {out['first_prefill_s']:.2f} s); launches "
+        f"{counts}; peak device memory {out['peak_bytes'] / 1e9:.2f} GB above "
+        f"the weights; logits {tuple(logits.shape)}")
+    vocab = ((cfg.num_codebooks, cfg.padded_vocab) if cfg.num_codebooks > 1
+             else (cfg.padded_vocab,))
+    check(tuple(logits.shape) == (1, LM_SEQ) + vocab
+          and logits.dtype == torch.float32,
+          f"{tag}: logits {logits.dtype} {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+    check(counts["flash_attention"] == k4,
+          f"{tag}: flash_attention launched {counts['flash_attention']} "
+          f"times in the prefill (expected {k4})")
+    prof = _profile(lambda: forward(params, cfg, **inputs))
+    prof["busy_share_of_unprofiled_wall"] = prof["busy_us"] / 1e6 / wall
+    out["profile"] = prof
+    log(f"[{tag}] profiled prefill: device busy {prof['busy_us'] / 1e3:.1f} "
+        f"ms = {100 * prof['busy_share_of_unprofiled_wall']:.1f} % of the "
+        f"unprofiled {1e3 * wall:.0f} ms, {prof['launches']} device "
+        f"operations")
+    for row in prof["kernels"][:10]:
+        log(f"[{tag}]   {row['device_us'] / 1e3:9.2f} ms  x{row['calls']:<4d} "
+            f"{row['name']}")
+    return logits
+
+
+def _check_logits(tag: str, what: str, got, want, out: dict) -> dict:
+    """``_logit_parity`` of got against want, held to LM_LOGIT_RTOL at
+    every position, and the arg-max to LM_ARGMAX_AGREE at the positions
+    where ``want``'s top two logits lie further apart than that tolerance
+    (the rule phase lm's decode check applies to its one position). The
+    random models of phase families have flat logits: at many positions
+    their top two lie closer than the tolerance, and there a difference
+    within it may pick either; that share is reported beside the arg-max
+    agreement over all positions."""
+    import torch
+    par = out[what] = _logit_parity(got, want)
+    tol = LM_LOGIT_RTOL * par["max_logit"]
+    top2 = torch.topk(want, 2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > tol
+    same = got.argmax(-1) == want.argmax(-1)
+    par["decided_share"] = float(decided.float().mean())
+    par["argmax_agree_decided"] = (float(same[decided].float().mean())
+                                   if decided.any() else None)
+    log(f"[{tag}] {what}: max|Δ| {par['max_abs']:.4g} against a largest "
+        f"|logit| {par['max_logit']:.4g} (tolerance {LM_LOGIT_RTOL:g} of it, "
+        f"{tol:.4g}); the top two logits lie further apart than the "
+        f"tolerance at {100 * par['decided_share']:.2f} % of the positions, "
+        f"where the arg-max agrees at "
+        + ("—" if par["argmax_agree_decided"] is None else
+           f"{100 * par['argmax_agree_decided']:.2f} %")
+        + f" (at least {100 * LM_ARGMAX_AGREE:g} %); over all positions at "
+        f"{100 * par['argmax_agree']:.2f} %")
+    check(par["max_abs"] <= tol, f"{tag} {what}: max|Δ| {par['max_abs']:.4g}")
+    if par["argmax_agree_decided"] is not None:
+        check(par["argmax_agree_decided"] >= LM_ARGMAX_AGREE,
+              f"{tag} {what}: arg-max agrees at "
+              f"{par['argmax_agree_decided']:.4f} of the decided positions")
+    return par
+
+
+def _family_decode(tag: str, cfg, params, inputs: dict, out: dict) -> None:
+    """LM_DECODE_PROMPT decode steps (batch 1) against the prefill of the
+    same inputs at its last position, each step timed."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, forward, init_decode_state
+    n = LM_DECODE_PROMPT
+    key = "embeds" if "embeds" in inputs else "tokens"
+    prompt = inputs[key][:, :n]
+    full = forward(params, cfg, **{key: prompt}).logits[:, -1]
+    st = init_decode_state(cfg, 1, n, device="cuda")
+    ms = []
+    for i in range(n):
+        t = time.perf_counter()
+        step = {key: prompt[:, i:i + 1]}
+        if key == "embeds":
+            step["tokens"] = None
+        lg, st = decode_step(params, cfg, state=st, **step)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    out["decode_median_step_ms"] = float(np.median(ms))
+    got = lg[:, 0]
+    par = out["parity_decode"] = _logit_parity(got, full)
+    rtol = par["rtol"] = SSM_DECODE_RTOL.get(cfg.name, LM_LOGIT_RTOL)
+    top2 = torch.topk(full, 2, dim=-1).values
+    gap = float((top2[..., 0] - top2[..., 1]).min())
+    log(f"[{tag}] decode x{n} vs prefill, last position: max|Δ| "
+        f"{par['max_abs']:.4g} against a largest |logit| "
+        f"{par['max_logit']:.4g} = {par['max_abs'] / par['max_logit']:.4f} "
+        f"of it (tolerance {rtol:.4g} of it); greedy tokens "
+        f"{got.argmax(-1).flatten().tolist()} / "
+        f"{full.argmax(-1).flatten().tolist()}, smallest top-2 gap "
+        f"{gap:.4g}; median step {np.median(ms):.2f} ms")
+    check(par["max_abs"] <= rtol * par["max_logit"],
+          f"{tag} decode parity: max|Δ| {par['max_abs']:.4g}")
+    if gap > rtol * par["max_logit"]:
+        check(par["argmax_agree"] == 1.0, f"{tag}: decode and prefill pick "
+              "different greedy tokens")
+
+
+def _routing(calls: list[dict], t: int, k: int):
+    """Per MoE layer and token: its experts in rank order and which of its
+    assignments were kept, (layers, t, k) each."""
+    import torch
+    experts = torch.stack([c["expert"].reshape(t, k) for c in calls])
+    kept = torch.stack([c["keep"].reshape(t, k) for c in calls])
+    return experts, kept
+
+
+class _Replay:
+    """For the length of a ``with``: ``moe.dispatch`` replays ``calls``'
+    routing (experts, slots, kept flags), layer by layer, with gate weights
+    from the probabilities it is given (the reference's normalisation over
+    the token's recorded experts)."""
+
+    def __init__(self, calls: list[dict]):
+        self.calls = list(calls)
+
+    def __enter__(self) -> "_Replay":
+        from repro_torch.models import moe as moe_mod
+        self._inner = moe_mod.dispatch
+
+        def replay(probs, k, cap):
+            import torch
+            rec = self.calls.pop(0)
+            G, t_g, _ = probs.shape
+            expert = rec["expert"].to(probs.device)
+            keep = rec["keep"].to(probs.device)
+            gate = probs.gather(2, expert.reshape(G, t_g, k))
+            gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+            return moe_mod.Dispatch(expert, rec["slot"].to(probs.device),
+                                    keep, torch.where(
+                                        keep, gate.reshape(G, t_g * k), 0.0))
+        moe_mod.dispatch = replay
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe as moe_mod
+        moe_mod.dispatch = self._inner
+
+
+def _moe_parity(tag: str, cfg, params, tokens, out: dict) -> None:
+    """The prefill through K4 against the plain chunked attention. Routing
+    is discontinuous, the GShard drop rule most of all: a bf16 difference
+    in one token's router logits can flip its top-k choice, which moves
+    the slots of the later tokens of its group that pick those experts and
+    so which of them the capacity keeps. Both runs' routing is recorded
+    layer by layer and their disagreement counted; the logits are held
+    with the plain run's routing replayed in the K4 run (its gate weights
+    from its own probabilities), so that they differ by the attention
+    kernel alone, at every position (``_check_logits``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models import moe as moe_mod
+
+    def record(a, disp):
+        return dict(expert=disp.expert.cpu(), keep=disp.keep.cpu(),
+                    slot=disp.slot.cpu())
+
+    k = cfg.moe.top_k
+    runs = {}
+    for name, c in (("plain", dataclasses.replace(cfg, use_pallas=False)),
+                    ("k4", cfg)):
+        with _Timed(moe_mod, "dispatch", record) as rec:
+            t0 = time.perf_counter()
+            logits = forward(params, c, tokens).logits
+            torch.cuda.synchronize()
+        runs[name] = (logits, rec.calls, time.perf_counter() - t0)
+    plain, plain_calls, plain_s = runs["plain"]
+    free, k4_calls, _ = runs.pop("k4")
+    e1, k1 = _routing(k4_calls, LM_SEQ, k)
+    e2, k2 = _routing(plain_calls, LM_SEQ, k)
+    experts_differ = (e1 != e2).any(dim=-1)                   # (layers, t)
+    kept_differ = (k1 != k2).any(dim=-1) & ~experts_differ
+    agree = ~(experts_differ | kept_differ).any(dim=0)
+    worst_free = (free - plain).abs().amax(dim=-1)[0]
+    arg_free = (free.argmax(-1) == plain.argmax(-1))[0].cpu()
+    del free
+    with _Replay(plain_calls):
+        got = forward(params, cfg, tokens).logits
+        torch.cuda.synchronize()
+    par = out["parity_plain"] = {}
+    par.update(
+        routing_replayed=True, plain_prefill_s=plain_s,
+        dropped_share=[float((~kk).float().mean()) for kk in (k1, k2)],
+        routing_agrees=int(agree.sum()),
+        experts_differ_by_layer=[int(r.sum()) for r in experts_differ],
+        only_kept_differ_by_layer=[int(r.sum()) for r in kept_differ],
+        free_max_abs=float(worst_free.max()),
+        free_max_abs_where_routing_agrees=float(
+            worst_free[agree.to(worst_free.device)].max()) if agree.any()
+        else None,
+        free_argmax_agree=float(arg_free.float().mean()))
+    log(f"[{tag}] the free runs' routing (plain {plain_s:.2f} s): "
+        f"assignments dropped {par['dropped_share'][0]:.4f} (K4) / "
+        f"{par['dropped_share'][1]:.4f} (plain); tokens whose experts "
+        f"differ, by MoE layer {par['experts_differ_by_layer']}; whose "
+        f"experts agree but kept flags differ "
+        f"{par['only_kept_differ_by_layer']}; routing agrees in every layer "
+        f"at {par['routing_agrees']} of {LM_SEQ} positions; free logits "
+        f"max|Δ| {par['free_max_abs']:.4g} "
+        f"({par['free_max_abs_where_routing_agrees']} where routing "
+        f"agrees), arg-max agrees at "
+        f"{100 * par['free_argmax_agree']:.2f} %")
+    par.update(_check_logits(tag, "parity_plain_replayed", got, plain, out))
+
+
+def _slot_reuse(tag: str, cfg, params, rng, out: dict) -> None:
+    """A prompt served twice through one slot: the second request finds the
+    slot's SSM state and KV entries of the first, which the engine hides
+    (the state zeroed, ``start``). Their prompt steps, the same tokens,
+    give the same logits up to rounding (the second request's RoPE
+    positions are shifted), held to the cell's decode tolerance, and so
+    the same first generated token where the top two logits lie further
+    apart than it; after that the greedy tokens may part at a near tie and
+    then feed different inputs, so their agreement is reported. The same
+    run with the state kept, as the reference's engine does (R3), must
+    move those logits by more than the tolerance: the check sees R3."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import Request, ServeEngine
+    prompt = rng.integers(0, cfg.vocab_size, 8).astype(np.int32)
+    rtol = SSM_DECODE_RTOL.get(cfg.name, LM_LOGIT_RTOL)
+
+    def serve(reset: bool):
+        engine = ServeEngine(cfg, params, slots=1, max_len=64)
+        logits = []
+        step_fn, admit = engine.step_fn, engine._admit
+
+        def recorded(*a):
+            lg, caches = step_fn(*a)
+            logits.append(lg[0, -1].float().cpu())
+            return lg, caches
+
+        def admit_keeping_state():
+            ssm = engine.caches.ssm
+            engine.caches = engine.caches._replace(ssm=None)
+            admit()
+            engine.caches = engine.caches._replace(ssm=ssm)
+
+        engine.step_fn = recorded
+        if not reset:
+            engine._admit = admit_keeping_state
+        for uid in (0, 1):
+            engine.submit(Request(uid=uid, prompt=prompt.copy(),
+                                  max_new_tokens=8))
+        done = {r.uid: r.generated for r in engine.run()}
+        half = len(logits) // 2
+        n = len(prompt)          # the prompt steps, the last one generating
+        first, second = (torch.stack(logits[:n]),
+                         torch.stack(logits[half:half + n]))
+        return done, float((first - second).abs().max()), first
+
+    done, diff, first = serve(reset=True)
+    _, kept_diff, _ = serve(reset=False)
+    scale = float(first.abs().max())
+    top2 = torch.topk(first[-1], 2).values
+    gap = float(top2[0] - top2[1])
+    same = next((i for i, (a, b) in enumerate(zip(done[0], done[1]))
+                 if a != b), len(done[0]))
+    out["slot_reuse"] = dict(generated=[done.get(0), done.get(1)],
+                             prompt_max_abs=diff, max_logit=scale,
+                             rtol=rtol, first_gap=gap, tokens_equal=same,
+                             state_kept_prompt_max_abs=kept_diff)
+    log(f"[{tag}] one slot, the same prompt of {len(prompt)} twice: the "
+        f"prompt steps' logits max|Δ| {diff:.4g} against a largest |logit| "
+        f"{scale:.4g} (tolerance {rtol:.4g} of it); with the state kept as "
+        f"the reference's engine keeps it, {kept_diff:.4g}; generated "
+        f"{done.get(0)} and {done.get(1)}, equal for the first {same} "
+        f"tokens (top-2 gap at the first {gap:.4g})")
+    check(len(done) == 2 and diff <= rtol * scale,
+          f"{tag}: a reused slot's prompt logits moved by {diff:.4g}")
+    check(kept_diff > rtol * scale, f"{tag}: keeping the state moved the "
+          f"prompt logits by only {kept_diff:.4g}")
+    if gap > rtol * scale:
+        check(same >= 1, f"{tag}: a reused slot's first token differs")
+
+
+def _families_moe(res: dict, rng) -> None:
+    """(a) deepseek-moe-16b at its published widths."""
+    import torch
+    tag = "families:moe"
+    cfg = _family_config(MOE_ARCH)
+    out = res["families"]["moe"] = {}
+    params = _family_model(tag, cfg, out)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LM_SEQ)),
+                             dtype=torch.int32, device="cuda")
+    _family_prefill(tag, cfg, params, dict(tokens=tokens), cfg.n_layers, out)
+    _moe_parity(tag, cfg, params, tokens, out)
+    torch.cuda.empty_cache()
+    out["serve"] = _serve_run(tag, cfg, params, rng)
+    out["serve"]["profile"] = _decode_profile(tag, cfg, params, LM_SLOTS)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _families_hybrid(res: dict, rng) -> None:
+    """(b) zamba2-7b at its published widths."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import forward
+    tag = "families:hybrid"
+    cfg = _family_config(ZAMBA_ARCH)
+    out = res["families"]["hybrid"] = {}
+    params = _family_model(tag, cfg, out)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LM_SEQ)),
+                             dtype=torch.int32, device="cuda")
+    n_groups = cfg.n_layers // cfg.shared_attn_every
+    logits = _family_prefill(tag, cfg, params, dict(tokens=tokens), n_groups,
+                             out)
+    t0 = time.perf_counter()
+    plain = forward(params, dataclasses.replace(cfg, use_pallas=False),
+                    tokens).logits
+    torch.cuda.synchronize()
+    out["plain_prefill_s"] = time.perf_counter() - t0
+    _check_logits(tag, "parity_plain", logits, plain, out)
+    del logits, plain
+    torch.cuda.empty_cache()
+    _family_decode(tag, cfg, params, dict(tokens=tokens), out)
+    out["serve"] = _serve_run(tag, cfg, params, rng)
+    out["serve"]["profile"] = _decode_profile(tag, cfg, params, LM_SLOTS)
+    _slot_reuse(tag, cfg, params, rng, out)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _families_ssm_audio(res: dict, rng) -> None:
+    """(c) mamba2-780m (no attention, so no port kernel) and
+    musicgen-medium from embeddings, at their published widths."""
+    import torch
+    for arch, key in ((MAMBA_ARCH, "ssm"), (AUDIO_ARCH, "audio")):
+        tag = f"families:{key}"
+        cfg = _family_config(arch)
+        out = res["families"][key] = {}
+        params = _family_model(tag, cfg, out)
+        if cfg.modality == "audio":
+            g = torch.Generator(device="cuda").manual_seed(0)
+            inputs = dict(embeds=torch.randn((1, LM_SEQ, cfg.d_model),
+                                             generator=g, device="cuda")
+                          .to(cfg.act_dtype))
+            k4 = cfg.n_layers
+        else:
+            inputs = dict(tokens=torch.as_tensor(
+                rng.integers(0, cfg.vocab_size, (1, LM_SEQ)),
+                dtype=torch.int32, device="cuda"))
+            k4 = 0
+        logits = _family_prefill(tag, cfg, params, inputs, k4, out)
+        del logits
+        _family_decode(tag, cfg, params, inputs, out)
+        out["decode_profile"] = _decode_profile(tag, cfg, params, 1)
+        del params, inputs
+        torch.cuda.empty_cache()
+
+
+def phase_families(res: dict, keep: dict) -> None:
+    """The moe, hybrid, ssm and audio families at their published widths,
+    bf16, use_pallas, random weights from seed 0; one model at a time."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res["families"] = {}
+    rng = np.random.default_rng(0)
+    _families_moe(res, rng)
+    _families_hybrid(res, rng)
+    _families_ssm_audio(res, rng)
+    keep["families"] = True
 
 
 def _profile(run) -> dict:
@@ -2876,18 +3377,17 @@ def _summary_sparse(res: dict, keep: dict) -> dict:
                 library_fn="linear, float32", library_kernel_ms=lin3)
 
 
-def _summary_attention(res: dict) -> dict:
-    """K4's row at the prefill's shape (bfloat16, causal), beside its plain
-    version and PyTorch's scaled_dot_product_attention on the same
-    tensors."""
+def _k4_shape_row(tag: str, cfg, launches, seed: int) -> dict:
+    """K4's row at a prefill's shape (1 x LM_SEQ of ``cfg``'s attention,
+    bfloat16, causal), beside its plain version and PyTorch's
+    scaled_dot_product_attention on the same tensors."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    cfg = _lm_config()
     B, Hq, Hkv, S, D = (1, cfg.n_heads, cfg.n_kv_heads, LM_SEQ,
                         cfg.resolved_head_dim)
-    q, k, v = _k4_inputs((B, Hq, S, D), Hkv, torch.bfloat16, seed=8)
+    q, k, v = _k4_inputs((B, Hq, S, D), Hkv, torch.bfloat16, seed=seed)
     err, share = _k4_check(q, k, v, True, 0)
     ms = cuda_ms(lambda: flash_attention(q, k, v), reps=10)
     plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), reps=3)
@@ -2910,20 +3410,41 @@ def _summary_attention(res: dict) -> dict:
     pairs = B * Hq * S * (S + 1) // 2          # causal live (query, key)
     bound, by = _bound_ms(4 * D * pairs, 2 * (2 * B * Hq + 2 * B * Hkv) * S
                           * D, "bfloat16")
-    log(f"[summary] K4 (B,Hq,Hkv,S,D)=({B},{Hq},{Hkv},{S},{D}) bf16 causal: "
-        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, {lib_fn} {lib_ms:.3f} ms "
-        f"(max|Δ| to K4 {lib_err:.3e}), bound {bound:.3f} ms ({by}, "
-        f"{4 * D * pairs / 1e9:.1f} GFLOP at the bf16 tensor-core peak), "
-        f"{4 * D * pairs / ms / 1e9:.1f} TFLOP/s, max|Δ| {err:.3e} "
-        f"({share:.3f} of the tolerance)")
-    res["k4_timing"] = dict(library_fn=lib_fn, library_max_abs_diff=lib_err,
-                            tflops=4 * D * pairs / ms / 1e9)
-    return dict(name="flash_attention", route="cuda",
+    log(f"[summary] K4 {tag} (B,Hq,Hkv,S,D)=({B},{Hq},{Hkv},{S},{D}) bf16 "
+        f"causal: kernel {ms:.3f} ms, plain {plain:.3f} ms, {lib_fn} "
+        f"{lib_ms:.3f} ms (max|Δ| to K4 {lib_err:.3e}), bound {bound:.3f} ms "
+        f"({by}, {4 * D * pairs / 1e9:.1f} GFLOP at the bf16 tensor-core "
+        f"peak), {4 * D * pairs / ms / 1e9:.1f} TFLOP/s, max|Δ| {err:.3e} "
+        f"({share:.3f} of the tolerance); launches {launches}")
+    return dict(name="flash_attention", shape=f"{tag} (B, Hq, Hkv, S, D) = "
+                f"{(B, Hq, Hkv, S, D)} bf16 causal", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:97",
-                launches=_launches(res, "lm", "flash_attention"),
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=lib_ms, library_fn=lib_fn)
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                library_fn=lib_fn, library_max_abs_diff=lib_err,
+                tflops=4 * D * pairs / ms / 1e9)
+
+
+def _summary_attention(res: dict) -> dict:
+    """K4's row at the phi4-mini prefill's shape (phase lm)."""
+    row = _k4_shape_row(LM_ARCH, _lm_config(),
+                        _launches(res, "lm", "flash_attention"), seed=8)
+    res["k4_timing"] = dict(library_fn=row["library_fn"],
+                            library_max_abs_diff=row["library_max_abs_diff"],
+                            tflops=row["tflops"])
+    return row
+
+
+def _summary_families(res: dict) -> list[dict]:
+    """K4's rows at the prefill shapes of phase families' attention cells,
+    each with its launches in that cell's measured prefill."""
+    fam = res["families"]
+    return [_k4_shape_row(arch, _family_config(arch),
+                          fam[key]["launches"]["flash_attention"], seed=seed)
+            for arch, key, seed in ((ZAMBA_ARCH, "hybrid", 9),
+                                    (MOE_ARCH, "moe", 10),
+                                    (AUDIO_ARCH, "audio", 11))]
 
 
 def _summary_train_attention(res: dict) -> dict:
@@ -2968,6 +3489,8 @@ def phase_summary(res: dict, keep: dict) -> None:
         rows.append(_summary_attention(res))
     if "train" in keep:
         rows.append(_summary_train_attention(res))
+    if "families" in keep:
+        rows.extend(_summary_families(res))
     if "samplers" in res or "serve" in res:
         rows.extend(_summary_slice7(res, keep))
     res["kernels"] = rows
@@ -3082,6 +3605,8 @@ def main() -> int:
             phase_lm(res, keep)
         elif name == "train":
             phase_train(res, keep)
+        elif name == "families":
+            phase_families(res, keep)
         elif name == "summary":
             phase_summary(res, keep)
         elif name == "limits":

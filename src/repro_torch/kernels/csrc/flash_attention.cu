@@ -45,7 +45,13 @@
 // itself (bf16's unit roundoff), so an output o_id by at most
 // 2^-8 * sum_j p_ij |v_jd| / l_i.
 // TMA fills rows past S with zeros; keys past S are masked and query rows
-// past S are not stored, so any S works.
+// past S are not stored, so any S works. A head dim that is not a multiple
+// of 64 (zamba2's 112) runs the tiles of the next one (DP = 128) on the real
+// rows: the tensor maps span the DR real columns (224-byte rows), so the
+// box of columns 64-127 reads 112-127 as zeros. Q K^T then takes DR/16
+// k-steps (the zero columns would add nothing), P V computes zeros in the
+// padded columns, and the store writes the DR real ones. No operand is
+// copied into a padded buffer.
 //
 // Measured on an H100 at the prefill's shape (chip_smoke.py, phase
 // summary): about 0.80 ms, about 515 TFLOP/s. Edited copies measured on the
@@ -434,7 +440,8 @@ __device__ __forceinline__ bool tile_live(int k0, int r0, int rows, int causal,
   return true;
 }
 
-template <int D>
+// D: the tiles' head dim (a multiple of 64, or 32); DR <= D: the operands'
+template <int D, int DR>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -529,7 +536,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
       float s[BK / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DR / 16; ++kk) {
         const int c = kk / (G::CW / 16), in = kk % (G::CW / 16);
         wgmma_ss(s, q_desc(kk),
                      desc(kt + c * BK * G::ROW_BYTES + 32 * in, 16,
@@ -612,7 +619,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     }
   }
 
-  // l over the four threads of a row, then the normalised rows
+  // l over the four threads of a row, then the normalised rows, their DR
+  // real columns
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -620,9 +628,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     const int qp = row + 8 * h;
     if (qp >= S) continue;
     const float den = fmaxf(l[h], 1e-30f);
-    __nv_bfloat16* orow = out + ((int64_t)bh * S + qp) * D + c2;
+    __nv_bfloat16* orow = out + ((int64_t)bh * S + qp) * DR + c2;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DR / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * h] / den,
                                 o[4 * j + 2 * h + 1] / den);
@@ -655,14 +663,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// (B*H, S, D) bf16 as a 3-d map (column, row, head) with boxes of CW
-// columns and `rows` rows; rows past S read as zeros
-template <int D>
+// (B*H, S, DR) bf16 as a 3-d map (column, row, head) with boxes of CW
+// columns and `rows` rows; rows past S and columns past DR read as zeros
+template <int D, int DR>
 bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int S,
                 int heads, int rows) {
   using G = Geo<D>;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)DR, (cuuint64_t)S,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)DR * 2, (cuuint64_t)S * DR * 2};
   const cuuint32_t box[3] = {(cuuint32_t)G::CW, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
@@ -674,7 +683,7 @@ bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int S,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DR>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Hq, int Hkv, int S, int causal, int window, float scale,
            cudaStream_t stream) {
@@ -682,11 +691,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map<D>(&tq, encode, q, S, B * Hq, BQ) ||
-      !tensor_map<D>(&tk, encode, k, S, B * Hkv, BK) ||
-      !tensor_map<D>(&tv, encode, v, S, B * Hkv, BK))
+  if (!tensor_map<D, DR>(&tq, encode, q, S, B * Hq, BQ) ||
+      !tensor_map<D, DR>(&tk, encode, k, S, B * Hkv, BK) ||
+      !tensor_map<D, DR>(&tv, encode, v, S, B * Hkv, BK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_fwd_bf16<D>;
+  auto kernel = flash_fwd_bf16<D, DR>;
   cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (set != cudaSuccess) return (int)set;
@@ -699,7 +708,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace tc
 
-template <int D>
+// D: the operands' head dim; DP: the bf16 instance's tiles (D padded)
+template <int D, int DP = D>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B,
              int Hq, int Hkv, int S, int dtype, int causal, int window,
              float scale, cudaStream_t s) {
@@ -707,15 +717,15 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
     return simt::launch<D>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale,
                            s);
   if (dtype == 1)
-    return tc::launch<D>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale,
-                         s);
+    return tc::launch<DP, D>(q, k, v, out, B, Hq, Hkv, S, causal, window,
+                             scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype (of q, k, v and the output): 0 = float32 (SIMT), 1 = bfloat16
-// (tensor cores). D in {32, 64, 128}; Hq a multiple of Hkv; scale already
+// (tensor cores). D in {32, 64, 112, 128}; Hq a multiple of Hkv; scale already
 // resolved (> 0). q, k, v 16-byte aligned and contiguous. Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -735,6 +745,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (D == 64)
     return launch_d<64>(q, k, v, out, B, Hq, Hkv, S, dtype, causal, window, sc,
                         s);
+  if (D == 112)   // zamba2-7b's shared attention: 3584 over 32 heads
+    return launch_d<112, 128>(q, k, v, out, B, Hq, Hkv, S, dtype, causal,
+                              window, sc, s);
   if (D == 128)
     return launch_d<128>(q, k, v, out, B, Hq, Hkv, S, dtype, causal, window,
                          sc, s);

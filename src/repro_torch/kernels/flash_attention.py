@@ -17,8 +17,10 @@ rounding. float32 operands run the SIMT kernel in IEEE float32.
 The shape contract is the Pallas wrapper's: a query block of
 ``min(256, S)`` rows, so S ≤ 256 is any length and a longer S must be a
 multiple of 256 (``attention_shapes`` raises otherwise, on either route).
-float32 and bfloat16 operands, head dims 32, 64 and 128; bf16 operands
-16-byte aligned (TMA reads them).
+float32 and bfloat16 operands, head dims 32, 64, 112 (zamba2-7b's shared
+attention; the bf16 instance runs the 128 tiles over the real 112-wide
+rows, TMA reading the missing columns as zeros, so nothing is copied) and
+128; bf16 operands 16-byte aligned (TMA reads them).
 
 This wrapper is the forward alone and takes CUDA tensors only. Gradients
 go through ``repro_torch.kernels.ops.attention``: its autograd Function
@@ -37,7 +39,7 @@ import torch
 from torch import Tensor
 
 BLOCK = 256                      # the Pallas wrapper's bq = bk default
-HEAD_DIMS = (32, 64, 128)        # the kernel's template instances
+HEAD_DIMS = (32, 64, 112, 128)   # the kernel's template instances
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BF16_ROWS = 192                  # query rows per block of the bf16 instance
 # gridDim.y carries B·Hq in the float32 instance and the query tiles in the

@@ -2,7 +2,10 @@
 
 ``python -m repro_torch.launch.serve --arch phi4-mini-3.8b --requests 8``
 runs the reduced (~100M) variant of the arch (``build_small_cfg``) on the
-card; ``--device cpu`` runs it on the CPU through the plain versions.
+card; ``--device cpu`` runs it on the CPU through the plain versions. Every
+text arch serves: dense, moe (deepseek-moe-16b, llama4-scout-17b-a16e), ssm
+(mamba2-780m) and hybrid (zamba2-7b); the vision and audio archs take
+embeddings, which ``ServeEngine``'s token requests cannot carry.
 ``--nystrom`` (the paper's RLS-compressed KV reads) is ROADMAP item 12.4.
 """
 from __future__ import annotations

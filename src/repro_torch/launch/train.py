@@ -7,7 +7,8 @@ weights from seed 0, the synthetic token stream, ``make_train_step`` under
 the fault-tolerant ``TrainDriver`` with checkpoints every ``--ckpt-every``
 steps (it resumes from the newest complete checkpoint in ``--ckpt-dir``).
 The reference shards over a host mesh; the port has one device until
-ROADMAP item 9.
+ROADMAP item 9. The dense text archs train; the moe, ssm and hybrid
+families and the vision / audio archs raise (ROADMAP item 12.3b).
 """
 from __future__ import annotations
 
@@ -26,9 +27,9 @@ from ..runtime import (DriverConfig, TrainDriver, init_train_state,
 
 
 def build_small_cfg(arch: str, **over):
-    """~100M-scale variant of an arch for end-to-end example training (the
-    reference's, without its moe / ssm / hybrid reductions: ``init_model``
-    refuses those families, ROADMAP item 12.3)."""
+    """~100M-scale variant of an arch for end-to-end examples, the
+    reference's reduction (``launch/serve.py`` serves every family at it;
+    this launcher trains the dense text family, ROADMAP item 12.3b)."""
     cfg = get_config(arch)
     small = dict(n_layers=min(cfg.n_layers, 8),
                  d_model=512,
@@ -40,6 +41,16 @@ def build_small_cfg(arch: str, **over):
                  vocab_size=min(cfg.vocab_size, 32_000),
                  vocab_pad_multiple=128,
                  dtype="float32")
+    if cfg.family == "moe":
+        small["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=8, top_k=min(cfg.moe.top_k, 2),
+            d_ff_expert=512, d_ff_shared=512,
+            first_dense_ff=1536 if cfg.moe.first_dense_ff else 0)
+    if cfg.family in ("ssm", "hybrid"):
+        small["ssm"] = dataclasses.replace(cfg.ssm, d_state=64, head_dim=64,
+                                           chunk=128)
+    if cfg.family == "hybrid":
+        small["shared_attn_every"] = 3
     small.update(over)
     return dataclasses.replace(cfg, **small)
 

@@ -1,4 +1,5 @@
-"""The LM stack of the port: the dense family's prefill, decode and loss."""
+"""The LM stack of the port: every family's prefill and decode, and the
+dense family's loss."""
 from .convert import params_from_reference
 from .transformer import (DecodeCaches, ForwardOut, decode_step, forward,
                           forward_hidden, init_decode_state, init_model,

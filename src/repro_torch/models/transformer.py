@@ -1,31 +1,46 @@
-"""Decoder-only LM, the dense family: the port of ``models/transformer.py``.
+"""Config-driven decoder-only LM: the port of ``models/transformer.py``.
 
-  [attention + gated MLP] × L, with optional post-norms and gemma2's
-  alternating local windows (even layers local).
+Families:
+  dense / vlm / audio — [attention + gated MLP] × L, with optional post-norms
+                        and gemma2's alternating local windows (even layers
+                        local)
+  moe                 — [attention + (shared + routed) MoE] × L, layer 0
+                        optionally dense (deepseek's ``first_dense_ff``)
+  ssm                 — [Mamba2 SSD] × L
+  hybrid (zamba2)     — groups of ``shared_attn_every`` Mamba2 layers, each
+                        followed by one shared attention + MLP block (the
+                        same weights at every use, a KV cache for each
+                        use), then the tail layers
 
 Entry points:
-  init_model(cfg, generator, device=, dtype=)  → params
-  forward(params, cfg, tokens)                 → ForwardOut(logits, aux)
-  loss_fn(params, cfg, tokens, labels)         → scalar CE (training)
-  init_decode_state(cfg, batch, max_len)       → DecodeCaches
-  decode_step(params, cfg, tokens, state)      → logits, new state
+  init_model(cfg, generator, device=, dtype=)    → params
+  forward(params, cfg, tokens | embeds)          → ForwardOut(logits, aux)
+  loss_fn(params, cfg, tokens, labels)           → scalar CE (training)
+  init_decode_state(cfg, batch, max_len)         → DecodeCaches
+  decode_step(params, cfg, tokens, state[, embeds]) → logits, new state
 
 Parameters are plain dicts of tensors, with a Python list of per-layer
 dicts under "layers" (the reference stacks them on a leading axis for
-``lax.scan``; ``convert.params_from_reference`` unstacks). Every weight is
-cast to the activation dtype ``cfg.dtype`` where it is used, as the
-reference does. Serving holds its weights in that dtype (``init_model``'s
-default), so the casts are no-ops and phi4-mini-3.8b holds 7.7 GB of bf16
-weights; training holds float32 masters (``dtype=cfg.param_dtype``), and
-a bf16 cast of a master equals the serving weight, so both compute the
-same forward. Norm scales stay float32.
+``lax.scan``; ``convert.params_from_reference`` unstacks); deepseek's dense
+first layer is "layer0", zamba2's shared block "shared_attn", musicgen's
+codebook head "cb_head" (d, codebooks, vocab). Every weight is cast to the
+activation dtype ``cfg.dtype`` where it is used, as the reference does.
+Serving holds its weights in that dtype (``init_model``'s default), so the
+casts are no-ops and phi4-mini-3.8b holds 7.7 GB of bf16 weights; training
+holds float32 masters (``dtype=cfg.param_dtype``), and a bf16 cast of a
+master equals the serving weight, so both compute the same forward. Norm
+scales and the SSM's float32 parameters (``ssm.init_ssm``) stay float32.
+
+The vision and audio configs take embeddings (b, s, d) in place of tokens:
+their front ends are stubs in the reference too. Token embeddings are
+scaled by √d_model in the dense, vlm and audio families only, as the
+reference does.
 
 ``forward`` and ``decode_step`` run under ``torch.no_grad``; ``loss_fn``
 takes gradients through ``forward_hidden``, each layer rematerialised as
 ``cfg.remat`` says (``_remat``), the LM head chunked (``head_chunk``).
-
-The moe, ssm and hybrid families and the vision/audio front ends are
-ROADMAP item 12.3 and raise; so does Nyström-RLS attention (item 12.4).
+Training the moe, ssm and hybrid families or from embeddings is ROADMAP
+item 12.3b and raises; so does Nyström-RLS attention (item 12.4).
 """
 from __future__ import annotations
 
@@ -44,28 +59,42 @@ from .attention import (DecodeState, KVCache, attention_block, check_exact,
                         decode_attention_block, init_attention,
                         init_kv_cache)
 from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
-                     rmsnorm, unembed)
+                     rmsnorm, softcap_logits, unembed)
+from .moe import init_moe, moe_block
+from .ssm import (SSMState, init_ssm, init_ssm_state, ssm_block,
+                  ssm_decode_step)
+
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
+TRAIN_TODO = ("training is ported for the dense text family only: the moe, "
+              "ssm and hybrid families and training from embeddings (the "
+              "vision / audio front ends) are ROADMAP item 12.3b")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse what the port does not run yet, naming its ROADMAP item."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    check_exact(cfg)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse the configs that ``loss_fn`` does not train yet."""
+    check_supported(cfg)
     if cfg.family != "dense" or cfg.modality != "text":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} / modality {cfg.modality!r} "
-            "is not ported; the port runs the dense text family (the moe, "
-            "ssm and hybrid families and the vision/audio front ends are "
-            "ROADMAP item 12.3)")
-    check_exact(cfg)
+            f"{cfg.name}: family {cfg.family!r} / modality "
+            f"{cfg.modality!r}: {TRAIN_TODO}")
 
 
 # --------------------------------------------------------------------- init
 
 def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig,
-                      dt: torch.dtype) -> dict:
+                      dt: torch.dtype, d_ff: int | None = None) -> dict:
     dev = generator.device
     p = {
         "attn": init_attention(generator, cfg, dt),
-        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, dt),
+        "mlp": init_mlp(generator, cfg.d_model,
+                        cfg.d_ff if d_ff is None else d_ff, dt),
         "ln1": init_rmsnorm(cfg.d_model, dev),
         "ln2": init_rmsnorm(cfg.d_model, dev),
     }
@@ -75,15 +104,30 @@ def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _init_moe_layer(generator: torch.Generator, cfg: ModelConfig,
+                    dt: torch.dtype) -> dict:
+    dev = generator.device
+    return {"attn": init_attention(generator, cfg, dt),
+            "moe": init_moe(generator, cfg, dt),
+            "ln1": init_rmsnorm(cfg.d_model, dev),
+            "ln2": init_rmsnorm(cfg.d_model, dev)}
+
+
+def _init_ssm_layer(generator: torch.Generator, cfg: ModelConfig,
+                    dt: torch.dtype) -> dict:
+    return {"ssm": init_ssm(generator, cfg, dt),
+            "ln": init_rmsnorm(cfg.d_model, generator.device)}
+
+
 def init_model(cfg: ModelConfig, generator: torch.Generator | None = None, *,
                device="cuda", dtype=None) -> dict:
     """Random weights with the reference's initialisers (truncated normal
-    at ±3σ, the same standard deviations), drawn from ``generator`` (a
-    ``torch.Generator`` on ``device``; default: seed 0) in float32 one
-    tensor at a time and cast to ``dtype``: ``cfg.dtype`` by default (for
-    serving), ``cfg.param_dtype`` for training's masters. torch's streams
-    are not JAX's: for the reference's own weights use
-    ``params_from_reference``."""
+    at ±3σ, the same standard deviations; the codebook head a plain
+    normal), drawn from ``generator`` (a ``torch.Generator`` on ``device``;
+    default: seed 0) in float32 one tensor at a time and cast to
+    ``dtype``: ``cfg.dtype`` by default (for serving), ``cfg.param_dtype``
+    for training's masters. torch's streams are not JAX's: for the
+    reference's own weights use ``params_from_reference``."""
     check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
@@ -98,8 +142,31 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None, *,
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(generator, cfg.padded_vocab,
                                            cfg.d_model, dt)
-    params["layers"] = [_init_dense_layer(generator, cfg, dt)
-                        for _ in range(cfg.n_layers)]
+    if _codebooks(cfg):
+        head = torch.randn((cfg.d_model, cfg.num_codebooks, cfg.padded_vocab),
+                           generator=generator, device=dev)
+        params["cb_head"] = head.mul_(cfg.d_model ** -0.5).to(dt)
+
+    fam = cfg.family
+    if fam in ("dense", "vlm", "audio"):
+        params["layers"] = [_init_dense_layer(generator, cfg, dt)
+                            for _ in range(cfg.n_layers)]
+    elif fam == "moe":
+        first = cfg.moe.first_dense_ff
+        params["layers"] = [_init_moe_layer(generator, cfg, dt)
+                            for _ in range(cfg.n_layers - (1 if first else 0))]
+        if first:
+            params["layer0"] = _init_dense_layer(generator, cfg, dt, first)
+    else:   # ssm, hybrid
+        params["layers"] = [_init_ssm_layer(generator, cfg, dt)
+                            for _ in range(cfg.n_layers)]
+        if fam == "hybrid":
+            params["shared_attn"] = {
+                "attn": init_attention(generator, cfg, dt),
+                "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, dt),
+                "ln1": init_rmsnorm(cfg.d_model, dev),
+                "ln2": init_rmsnorm(cfg.d_model, dev),
+            }
     return params
 
 
@@ -128,19 +195,41 @@ def _layer_windows(cfg: ModelConfig, n: int) -> list[int]:
 
 def _embed_tokens(params: dict, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     h = embed(params["embed"], tokens, cfg.act_dtype)
+    if cfg.family not in ("dense", "vlm", "audio"):
+        return h
     # the scale is cast to the activation dtype first, as the reference
     # does: √3072 = 55.43 becomes 55.5 in bfloat16
     return h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
 
 
+def _inputs(params: dict, cfg: ModelConfig, tokens: Tensor | None,
+            embeds: Tensor | None) -> Tensor:
+    """The first hidden states: token embeddings, or ``embeds`` (the
+    vision / audio front ends' output) in the activation dtype."""
+    if embeds is None:
+        return _embed_tokens(params, cfg, tokens)
+    return embeds.to(cfg.act_dtype)
+
+
+def _codebooks(cfg: ModelConfig) -> bool:
+    return cfg.modality == "audio" and cfg.num_codebooks > 1
+
+
 def _head(params: dict, cfg: ModelConfig, h: Tensor) -> Tensor:
+    """float32 logits (..., vocab), or (..., codebooks, vocab) through the
+    codebook head."""
+    if _codebooks(cfg):
+        w = params["cb_head"].to(h.dtype)
+        d, cb, v = w.shape
+        logits = (h @ w.reshape(d, cb * v)).reshape(*h.shape[:-1], cb, v)
+        return softcap_logits(logits.float(), cfg.final_softcap)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed(table, h, softcap=cfg.final_softcap)
 
 
 class ForwardOut(NamedTuple):
-    logits: Tensor       # (b, s, vocab_padded) float32
-    aux_loss: Tensor
+    logits: Tensor       # (b, s, vocab_padded) or (b, s, cb, vocab_padded)
+    aux_loss: Tensor     # float32; the MoE families' summed Switch loss
 
 
 class HiddenOut(NamedTuple):
@@ -174,31 +263,67 @@ def _remat(cfg: ModelConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
-def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
+def _hybrid_groups(cfg: ModelConfig) -> tuple[int, int, int]:
+    """n_layers = n_groups·every + tail; the shared block after each
+    group."""
+    every = cfg.shared_attn_every
+    n_groups = cfg.n_layers // every
+    return n_groups, every, cfg.n_layers - n_groups * every
+
+
+def _ssm_layer(cfg: ModelConfig, p: dict, h: Tensor) -> Tensor:
+    return h + ssm_block(p["ssm"], cfg, rmsnorm(p["ln"], h, cfg.norm_eps))
+
+
+def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor | None = None,
+                   embeds: Tensor | None = None,
                    positions: Tensor | None = None) -> HiddenOut:
-    """Backbone only (no LM head). tokens: (b, s) integers on the
-    parameters' device. Records gradients when grad mode is on (the loss
-    path), each layer under ``cfg.remat``."""
+    """Backbone only (no LM head). tokens: (b, s) integers, or embeds
+    (b, s, d), on the parameters' device. Records gradients when grad mode
+    is on (the loss path), each layer under ``cfg.remat``."""
     check_supported(cfg)
-    h = _embed_tokens(params, cfg, tokens)
+    h = _inputs(params, cfg, tokens, embeds)
     b, s, _ = h.shape
     if positions is None:
         positions = torch.arange(s, device=h.device).expand(b, s)
-    windows = _layer_windows(cfg, len(params["layers"]))
-    block = _remat(cfg, _dense_block)
-    for p, win in zip(params["layers"], windows):
-        h = block(cfg, p, h, positions, win)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    fam = cfg.family
+    if fam in ("dense", "vlm", "audio"):
+        windows = _layer_windows(cfg, len(params["layers"]))
+        block = _remat(cfg, _dense_block)
+        for p, win in zip(params["layers"], windows):
+            h = block(cfg, p, h, positions, win)
+    elif fam == "moe":
+        if "layer0" in params:
+            h = _dense_block(cfg, params["layer0"], h, positions, 0)
+        for p in params["layers"]:
+            h = h + attention_block(p["attn"], cfg,
+                                    rmsnorm(p["ln1"], h, cfg.norm_eps),
+                                    positions)
+            out = moe_block(p["moe"], cfg, rmsnorm(p["ln2"], h, cfg.norm_eps))
+            h = h + out.y
+            aux = aux + out.aux_loss
+    elif fam == "ssm":
+        for p in params["layers"]:
+            h = _ssm_layer(cfg, p, h)
+    else:   # hybrid
+        n_groups, every, _ = _hybrid_groups(cfg)
+        for i, p in enumerate(params["layers"]):
+            h = _ssm_layer(cfg, p, h)
+            if i < n_groups * every and (i + 1) % every == 0:
+                h = _dense_block(cfg, params["shared_attn"], h, positions, 0)
     return HiddenOut(rmsnorm(params["ln_f"], h, cfg.norm_eps), aux)
 
 
 @torch.no_grad()
-def forward(params: dict, cfg: ModelConfig, tokens: Tensor,
+def forward(params: dict, cfg: ModelConfig, tokens: Tensor | None = None,
+            embeds: Tensor | None = None,
             positions: Tensor | None = None) -> ForwardOut:
-    """Prefill forward: tokens (b, s) → float32 logits (b, s, padded_vocab).
-    With ``cfg.use_pallas`` every layer's attention is one K4 launch on
-    CUDA tensors."""
-    h, aux = forward_hidden(params, cfg, tokens, positions)
+    """Prefill forward: tokens (b, s) or embeds (b, s, d) → float32 logits
+    (b, s, padded_vocab), or (b, s, codebooks, padded_vocab) through the
+    codebook head. With ``cfg.use_pallas`` every attention block is one K4
+    launch on CUDA tensors."""
+    h, aux = forward_hidden(params, cfg, tokens, embeds, positions)
     return ForwardOut(_head(params, cfg, h), aux)
 
 
@@ -222,7 +347,9 @@ def loss_fn(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
     LM head: the (tokens × vocab) float32 logits are the largest training
     buffer at a 200k vocabulary, so the head runs ``head_chunk`` tokens at
     a time (one chunk when the token count is not a multiple), each chunk
-    rematerialised in the backward. tokens, labels: (b, s) integers."""
+    rematerialised in the backward. tokens, labels: (b, s) integers. The
+    dense text family only (``check_trainable``)."""
+    check_trainable(cfg)
     hid = forward_hidden(params, cfg, tokens)
     h = hid.h
     b, s, d = h.shape
@@ -245,35 +372,83 @@ def loss_fn(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
 # ------------------------------------------------------------------ decode
 
 class DecodeCaches(NamedTuple):
-    kv: KVCache      # stacked (L, b, hkv, S_max, dh) caches
-    length: int      # global write pointer
-    start: Tensor    # (b,) int32 — per-slot visibility start
+    kv: KVCache | None       # stacked (L, b, hkv, S_max, dh) caches
+    ssm: SSMState | None     # stacked (L, b, ...) SSM states
+    length: int              # global write pointer
+    start: Tensor            # (b,) int32 — per-slot visibility start
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       prefill_len: int = 0, *, device="cuda") -> DecodeCaches:
+    """Zeroed caches: a KV cache per attention layer (the moe family's
+    ``layer0`` at index 0; one per use of the hybrid's shared block) and an
+    SSM state per Mamba2 layer."""
     check_supported(cfg)
     dev = resolve_device(device)
-    kv = init_kv_cache(cfg, cfg.n_layers, batch, max_len, device=dev)
-    return DecodeCaches(kv, int(prefill_len),
+    fam = cfg.family
+    kv = ssm = None
+    if fam in ("dense", "vlm", "audio", "moe"):
+        kv = init_kv_cache(cfg, cfg.n_layers, batch, max_len, device=dev)
+    elif fam == "hybrid":
+        kv = init_kv_cache(cfg, _hybrid_groups(cfg)[0], batch, max_len,
+                           device=dev)
+    if fam in ("ssm", "hybrid"):
+        ssm = init_ssm_state(cfg, batch, cfg.n_layers, device=dev)
+    return DecodeCaches(kv, ssm, int(prefill_len),
                         torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
+def _layer_state(state: DecodeCaches, i: int) -> DecodeState:
+    return DecodeState(KVCache(state.kv.k[i], state.kv.v[i]), state.length,
+                       state.start)
+
+
+def _ssm_state(state: DecodeCaches, i: int) -> SSMState:
+    return SSMState(state.ssm.conv[i], state.ssm.ssm[i])
+
+
+def _decode_ssm_layer(cfg: ModelConfig, p: dict, h: Tensor,
+                      st: SSMState) -> Tensor:
+    out, _ = ssm_decode_step(p["ssm"], cfg, rmsnorm(p["ln"], h, cfg.norm_eps),
+                             st)
+    return h + out
+
+
 @torch.no_grad()
-def decode_step(params: dict, cfg: ModelConfig, tokens: Tensor,
-                state: DecodeCaches) -> tuple[Tensor, DecodeCaches]:
-    """One serving step: tokens (b, 1) → float32 logits (b, 1, vocab) and
-    the next state. The caches are updated in place: the returned state
-    shares ``state``'s tensors, with the write pointer one further."""
+def decode_step(params: dict, cfg: ModelConfig, tokens: Tensor | None,
+                state: DecodeCaches, embeds: Tensor | None = None,
+                ) -> tuple[Tensor, DecodeCaches]:
+    """One serving step: tokens (b, 1), or embeds (b, 1, d), → float32
+    logits (b, 1, vocab) or (b, 1, codebooks, vocab), and the next state.
+    The caches are updated in place: the returned state shares ``state``'s
+    tensors, with the write pointer one further."""
     check_supported(cfg)
-    if state.length >= state.kv.k.shape[3]:
+    if state.kv is not None and state.length >= state.kv.k.shape[3]:
         raise ValueError(f"the KV cache is full ({state.length} tokens)")
-    h = _embed_tokens(params, cfg, tokens)
-    windows = _layer_windows(cfg, len(params["layers"]))
-    for i, (p, win) in enumerate(zip(params["layers"], windows)):
-        st = DecodeState(KVCache(state.kv.k[i], state.kv.v[i]), state.length,
-                         state.start)
-        h = _decode_dense_block(cfg, p, h, st, win)
+    h = _inputs(params, cfg, tokens, embeds)
+    fam = cfg.family
+    if fam in ("dense", "vlm", "audio"):
+        windows = _layer_windows(cfg, len(params["layers"]))
+        for i, (p, win) in enumerate(zip(params["layers"], windows)):
+            h = _decode_dense_block(cfg, p, h, _layer_state(state, i), win)
+    elif fam == "moe":
+        off = 0
+        if "layer0" in params:
+            h = _decode_dense_block(cfg, params["layer0"], h,
+                                    _layer_state(state, 0), 0)
+            off = 1
+        for i, p in enumerate(params["layers"]):
+            h = _decode_moe_block(cfg, p, h, _layer_state(state, i + off))
+    elif fam == "ssm":
+        for i, p in enumerate(params["layers"]):
+            h = _decode_ssm_layer(cfg, p, h, _ssm_state(state, i))
+    else:   # hybrid
+        n_groups, every, _ = _hybrid_groups(cfg)
+        for i, p in enumerate(params["layers"]):
+            h = _decode_ssm_layer(cfg, p, h, _ssm_state(state, i))
+            if i < n_groups * every and (i + 1) % every == 0:
+                h = _decode_dense_block(cfg, params["shared_attn"], h,
+                                        _layer_state(state, i // every), 0)
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     return _head(params, cfg, h), state._replace(length=state.length + 1)
 
@@ -291,3 +466,12 @@ def _decode_dense_block(cfg: ModelConfig, p: dict, h: Tensor,
     if cfg.post_norms:
         f = rmsnorm(p["ln2_post"], f, cfg.norm_eps)
     return h + f
+
+
+def _decode_moe_block(cfg: ModelConfig, p: dict, h: Tensor,
+                      st: DecodeState) -> Tensor:
+    a, _ = decode_attention_block(
+        p["attn"], cfg, rmsnorm(p["ln1"], h, cfg.norm_eps), st)
+    h = h + a
+    out = moe_block(p["moe"], cfg, rmsnorm(p["ln2"], h, cfg.norm_eps))
+    return h + out.y

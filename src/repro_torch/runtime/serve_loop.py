@@ -29,16 +29,22 @@ from ..serve.slot import ModelSlot
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
-    """(params, tokens (b, 1), caches) → (logits, caches)."""
+    """(params, tokens (b, 1) | embeds (b, 1, d), caches) → (logits,
+    caches); the vision and audio configs take embeddings."""
 
     def serve_step(params: Any, tokens: Tensor, caches: Any):
+        if cfg.modality in ("vision", "audio"):
+            return decode_step(params, cfg, None, caches, embeds=tokens)
         return decode_step(params, cfg, tokens, caches)
 
     return serve_step
 
 
 def greedy_sample(logits: Tensor) -> Tensor:
-    """The arg-max token of the last position: (b, s, v) → (b, 1)."""
+    """The arg-max token of the last position: (b, s, v) → (b, 1), or
+    (b, s, codebooks, v) → (b, codebooks)."""
+    if logits.ndim == 4:
+        return torch.argmax(logits[:, -1], dim=-1)
     return torch.argmax(logits[:, -1], dim=-1, keepdim=True)
 
 
@@ -58,11 +64,24 @@ class ServeEngine:
     write pointer advances uniformly, and per-slot ``start`` offsets (set
     at admission) isolate each request's visible history. Freed slots are
     refilled from the queue at once. The KV caches live on the parameters'
-    device and are updated in place.
+    device and are updated in place. An admitted slot's SSM state (conv
+    window and recurrent state) is zeroed: ``start`` hides a predecessor's
+    KV entries, but nothing else would hide its recurrent state (the
+    reference leaves it, ROADMAP R3).
+
+    The requests carry token ids, so the vision and audio configs, whose
+    inputs are embeddings from a front end that the reference stubs, are
+    refused (ROADMAP R4); ``decode_step(embeds=)`` serves them directly.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int,
                  max_len: int):
+        if cfg.modality in ("vision", "audio"):
+            raise ValueError(
+                f"{cfg.name}: ServeEngine's requests carry token ids, and the "
+                f"{cfg.modality} config takes embeddings from a front end "
+                "that is a stub in the reference; drive decode_step(params, "
+                "cfg, None, state, embeds=...) directly")
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -86,8 +105,12 @@ class ServeEngine:
             if self.slot_req[s] is None and len(self.queue):
                 self.slot_req[s] = self.queue.pop()
                 self.prompt_pos[s] = 0
-                # the new request must not see the slot's previous history
+                # the new request must not see the slot's previous history:
+                # its KV entries through start, its SSM state zeroed
                 self.caches.start[s] = self.caches.length
+                if self.caches.ssm is not None:
+                    self.caches.ssm.conv[:, s].zero_()
+                    self.caches.ssm.ssm[:, s].zero_()
 
     def _next_inputs(self) -> Tensor:
         toks = np.zeros((self.slots, 1), np.int32)

@@ -22,7 +22,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..configs.base import ModelConfig
 from ..models import loss_fn
-from ..models.transformer import check_supported
+from ..models.transformer import check_trainable
 from ..optim import (AdamWConfig, AdamWState, adamw_update, compressed_grads,
                      init_adamw, init_compression)
 
@@ -40,11 +40,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     """Build the train step. ``num_microbatches > 1`` folds the global batch
     into sequential microbatches (gradient accumulation in float32) —
     memory for throughput."""
-    if cfg.modality in ("vision", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: training from embeddings (the vision / audio front "
-            "ends) is not ported: ROADMAP item 12.3")
-    check_supported(cfg)
+    check_trainable(cfg)
 
     def compute_grads(leaves: list[Tensor], spec, batch: dict
                       ) -> tuple[Tensor, list[Tensor]]:

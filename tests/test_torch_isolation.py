@@ -31,6 +31,15 @@ SCANNED.update({sub: sorted((PORT / sub).rglob("*.py"))
                             "checkpoint")})
 
 
+def test_the_scan_covers_every_module_of_the_port():
+    """Every source file of the package (new modules and subpackages
+    included) is in one of the scanned parts."""
+    scanned = {path for paths in SCANNED.values() for path in paths}
+    assert set(PORT.rglob("*.py")) <= scanned, \
+        sorted(str(p) for p in set(PORT.rglob("*.py")) - scanned)
+    assert {PORT / "models" / "moe.py", PORT / "models" / "ssm.py"} <= scanned
+
+
 def _forbidden(module: str) -> bool:
     return module.split(".")[0] in ("jax", "jaxlib", "repro")
 
@@ -41,6 +50,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.api.out_of_core, repro_torch.data.chunks, "
             "repro_torch.data.sparse, repro_torch.kernels.sparse_block, "
             "repro_torch.configs, repro_torch.models, repro_torch.serve, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
             "repro_torch.runtime, repro_torch.launch.serve, "
             "repro_torch.core.bless, repro_torch.core.recursive_rls, "
             "repro_torch.core.dnc, repro_torch.core.concentration, "

@@ -38,10 +38,11 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import (decode_step, forward, init_decode_state,
-                                init_model, params_from_reference)
+                                init_model, loss_fn, params_from_reference)
 from repro_torch.models import layers as tl
 from repro_torch.models.transformer import _embed_tokens
-from repro_torch.runtime import Request, ServeEngine
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import Request, ServeEngine, make_train_step
 
 LOGIT_TOL = dict(rtol=0, atol=1e-4)
 F32 = dict(rtol=1e-6, atol=1e-6)
@@ -305,10 +306,17 @@ def test_init_model_matches_the_parameter_count():
 
 
 def test_unported_families_and_modes_name_their_roadmap_item():
-    for arch in ("deepseek-moe-16b", "mamba2-780m", "zamba2-7b",
-                 "pixtral-12b", "musicgen-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12.3"):
-            init_model(get_config(arch), device="cpu")
+    """Training is ported for the dense text family: ``loss_fn`` and
+    ``make_train_step`` refuse the other six archs (the moe, ssm and
+    hybrid families, and the vision / audio archs, which take
+    embeddings), naming item 12.3b; Nyström-RLS attention names 12.4."""
+    for arch in ("deepseek-moe-16b", "llama4-scout-17b-a16e", "mamba2-780m",
+                 "zamba2-7b", "pixtral-12b", "musicgen-medium"):
+        cfg = get_config(arch)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12.3b"):
+            loss_fn({}, cfg, None, None)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12.3b"):
+            make_train_step(cfg, AdamWConfig())
     cfg = dataclasses.replace(_model("phi4-mini-3.8b")[1],
                               attn_approx="nystrom_rls")
     with pytest.raises(NotImplementedError, match="ROADMAP item 12.4"):
