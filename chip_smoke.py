@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA GPU
 
-Drives ``repro_torch`` (never the JAX package) through fifteen phases and
+Drives ``repro_torch`` (never the JAX package) through sixteen phases and
 exits non-zero on any failure:
 
   1. build     compile the CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -94,7 +94,25 @@ exits non-zero on any failure:
                rows, then finalize): every answer bit-equal to its version's
                snapshot, none dropped, no miss; then KRRServeEngine
                (batch_size=256) against predict_batched(256).
- 12. lm        the dense LM at phi4-mini-3.8b's published widths (32 layers,
+ 12. bf16      the bf16 KRR paths at full width, through the bf16 instances
+               of K1, K2 and K3, launch counts zeroed before and read after
+               each path: first the three instances against their plain
+               versions (ragged shapes and the paths' shapes; each cell's
+               share of its tolerance); (a) the main path's float32 model
+               served with Precision(serve_dtype="bf16"): predict_batched
+               (256) (predictions/s, one bf16 K1 launch a batch, test MSE
+               beside the float32 server's), AsyncServeEngine over a
+               ModelSlot of it (four client threads, BatchPolicy(256,
+               2.0 ms), every answer held to predict_batched) and
+               KRRServeEngine(batch_size=256), and the torch backend serving
+               the same state; (b) a fit from bf16 storage of the MSD rows
+               (Precision(data_dtype="bf16", solve_dtype="f64"): K1 and K2
+               in bf16), then predict_batched(256); (c) the RCV1 rows in
+               bf16 CSR chunks of 131,072 (K3 per chunk, K1 for W); (b) and
+               (c) each held hopper against torch at n = 20,000 with the
+               same draws, and each fit profiled once more. It makes its
+               own data and model when run alone.
+ 13. lm        the dense LM at phi4-mini-3.8b's published widths (32 layers,
                d_model 3072, 24 query / 8 KV heads, vocab 200,064), bfloat16,
                use_pallas, random weights from seed 0: the prefill of 1 x
                8,192 tokens (one K4 launch per layer, counts zeroed before
@@ -102,7 +120,7 @@ exits non-zero on any failure:
                chunked attention, decode_step against the prefill at 64
                tokens, and ServeEngine(slots=4, max_len=1024) answering 8
                requests of 32 new tokens.
- 13. train     LM training: (a) phi4-mini-3.8b at its published widths,
+ 14. train     LM training: (a) phi4-mini-3.8b at its published widths,
                float32 master weights from seed 0, bf16 compute,
                use_pallas, remat="full": 4 make_train_step steps of AdamW
                (lr 3e-4, warmup 2 of 8) on lm_batch at 8 x 512 tokens, K4
@@ -116,7 +134,7 @@ exits non-zero on any failure:
                SIMT instance) under TrainDriver, 12 steps with checkpoints
                every 4, uninterrupted and with a StepFailure at step 6: one
                restart, the losses equal to the uninterrupted run's.
- 14. families  the moe, hybrid, ssm and audio families at their published
+ 15. families  the moe, hybrid, ssm and audio families at their published
                widths, bfloat16, use_pallas, random weights from seed 0,
                one model at a time, each prefill of 1 x 8,192 with the
                launch counts zeroed before and read after, timed, its peak
@@ -130,7 +148,7 @@ exits non-zero on any failure:
                same tokens both times); (c) mamba2-780m (no attention) and
                musicgen-medium from embeddings (K4 48 times, the codebook
                logits), each with 64 decode steps against the prefill.
- 15. summary   each kernel's time at its path's shapes (CUDA events), its
+ 16. summary   each kernel's time at its path's shapes (CUDA events), its
                plain version's, the matching PyTorch library call's, and
                its bound; one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
@@ -144,10 +162,13 @@ audio families (K4's rows at their shapes), ``build,k2,k4,summary`` for
 the kernel checks and K2 / K4 rows alone, ``build,k1,k3,summary`` for
 K1's and K3's checks and rows, ``build,samplers`` and ``build,serve`` for
 this slice's paths (each makes its own data and models; add ``summary`` for
-their rows)); the default runs all fifteen. ``limits``, run
+their rows), ``build,bf16,summary`` for the bf16 paths and the bf16
+instances' rows); the default runs all sixteen. ``limits``, run
 only when named (``build,limits``), measures K2's 3xTF32 error at p = 2048,
-4096 and 8192 below the wrapper (which refuses p > 2048 in that build) and
-K1's float32 linear kind against ``torch.matmul`` at d = 16 and 256.
+4096 and 8192 below the wrapper (which refuses p > 2048 in that build),
+K1's float32 linear kind against ``torch.matmul`` at d = 16 and 256, and
+K2's bf16 build at p = 2048, 4096 and 8192 (which the wrapper does not
+limit).
 Results are also written to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -161,9 +182,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "k1", "k2", "k3", "k4", "main", "parity", "sparse",
-          "iter", "samplers", "serve", "lm", "train", "families", "summary")
-# run only when named: the measurements behind two limits that PERF.md
-# states, K2's TF32X3_MAX_P and K1's float32 product rate
+          "iter", "samplers", "serve", "bf16", "lm", "train", "families",
+          "summary")
+# run only when named: the measurements behind the limits that PERF.md
+# states, K2's TF32X3_MAX_P (and its absence from the bf16 build) and K1's
+# float32 product rate
 OPT_IN = ("limits",)
 
 # H100 SXM data sheet, the card's peak rate for each type: float32 on the
@@ -252,6 +275,66 @@ ITER_BETA_TOL = 1e-3
 DNC_PARTITIONS = 35
 # phase serve (ii): the deadline of every request of the hot swap
 SERVE_DEADLINE_MS = 5000.0
+# phase bf16. The kernels against their plain versions, element by element:
+# K1 and K3 within BF16_STEP·|plain| + the float32 check's atol (one bf16
+# step beyond the float32 sum's order; K3 rounds |x|^2 and the cross
+# product to bf16 before its epilogue, as its plain version does), K2 within
+# rtol BF16_STEP + 2e-4, atol 1e-6. The paths' storage policy: bf16 blocks,
+# float32 accumulation, float64 p×p solves (the default solve dtype is the
+# data's, and bf16 has no eigh or Cholesky in either package: fault R5)
+BF16_STEP = 2.0 ** -7
+BF16_PRECISION = dict(data_dtype="bf16", solve_dtype="f64")
+# (a): the quantized server's test MSE against the float32 server's on the
+# same model, relative gap. Readings: 0.081626 against 0.081629 on an H100
+# (3.7e-5), and the JAX package's 0.068438 against 0.068431 on the CPU at
+# n = 20,000, p = 1,024 (1.0e-4); the bound is 5x the larger.
+QUANT_MSE_GAP = 5e-4
+# (a): an AsyncServeEngine answer against predict_batched, over
+# Σ_j |k_j β_j|. K1 computes each block entry alike in every batch, so the
+# two differ only by the float32 contraction's order at another batch
+# size; phase serve reads 2.4e-8 of Σ_j |k_j β_j| for that contraction on
+# an H100 (40x inside this bound).
+QUANT_ANSWER_TOL = 1e-6
+# the RCV1 cell in bf16 CSR chunks accumulates in float64, as the float32
+# sparse cell does (SPARSE_PRECISION): with the bf16 rule's float32
+# accumulation, the float64 Cholesky of its Woodbury system failed at the
+# full n on an H100, through hopper and through torch alike
+# (tools/bf16_sparse_full_probe.py: not positive definite at order 73 and
+# 60 with each backend's own draws, at order 1727 and 1768 with the same
+# draws): the float32-accumulated CᵀC, read through W's factor, carries
+# more rounding than nλ = 0.68 absorbs (fault R2 of the reference, in
+# bf16). At the parity size the bf16 rule fits, and runs there.
+BF16_SPARSE_PRECISION = dict(data_dtype="bf16", accum_dtype="f64",
+                             solve_dtype="f64")
+# hopper against a plain route on the card, with the same draws ((b):
+# torch; (c): torch with K3's plain version for the CSR blocks, since the
+# torch route there is the reference's xla function, which does not round
+# |x|^2 and the cross product to bf16 before the epilogue, and parts from
+# hopper's by 1.1e-1 in the predictions at the parity size, on the CPU,
+# in both accumulations): both round float32 sums taken in other orders to
+# bf16, so some block entries may land on neighbouring bf16 values (on an
+# H100, hopper and this route read bit-equal in both accumulations). What
+# that does at the parity size, on the CPU
+# (tools/bf16_parity_probe.py, n = 20,000: float32 sums against float64
+# sums, each rounded to bf16 once; max relative error of the scores, ‖Δβ‖ /
+# ‖β‖, max |Δy| / max |y|): (b) scores 7.7e-3 (one bf16 step of a score
+# whose rounding flipped), β 4.1e-4, predictions 2.8e-4; (c) under the
+# bf16 rule, scores 7.8e-3, β 9.1e-3, predictions 2.0e-2 to 2.3e-2 over
+# two runs whose float32 sums took other orders (RBF(1.0) on unit-norm
+# rows at λ = 1e-6 is the ill-conditioned system of fault R2).
+# (c) in float64 accumulation rounds float64 sums to bf16, where two orders
+# almost never part. The tolerances: two bf16 steps on scores; half a step
+# on β and predictions (9x and 14x over (b)'s probe); under the bf16 rule,
+# four steps (3.1e-2) on β and the reference suite's own bf16 bar, 5e-2, on
+# predictions (2.1x over the probe).
+BF16_PARITY_TOL = {
+    "b": {"scores": 2 * BF16_STEP, "beta": BF16_STEP / 2,
+          "predictions": BF16_STEP / 2},
+    "c": {"scores": 2 * BF16_STEP, "beta": BF16_STEP / 2,
+          "predictions": BF16_STEP / 2},
+    "c_f32acc": {"scores": 2 * BF16_STEP, "beta": 4 * BF16_STEP,
+                 "predictions": 5e-2},
+}
 
 # K4 against its plain version: float32 at the atol of
 # tests/test_kernels_pallas.py (both IEEE float32). bfloat16, compared in
@@ -1964,6 +2047,716 @@ def phase_serve(res: dict, keep: dict) -> None:
     out["sync"] = dict(requests=len(done), wall_s=sync_s, max_abs_dev=diff)
 
 
+# ------------------------------------------------------- phase bf16
+
+def _bf16_share(got, want, rtol: float, atol) -> tuple[float, float]:
+    """(max |got − want|, the largest share of its tolerance
+    rtol·|want| + atol that an element uses), in float32."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    bound = rtol * want.float().abs() + atol
+    return float(err.max()), float(torch.max(err / bound))
+
+
+def _bf16_k1_plain(X, Z, kind: str, acc, **kw):
+    """K1's plain version on bf16 operands: the block in ``acc``, rounded
+    to bf16 once (``kernels.ops``' plain route)."""
+    import torch
+    from repro_torch.kernels import ref
+    Xa, Za = X.to(acc), Z.to(acc)
+    if kind == "rbf":
+        out = ref.rbf_block_ref(Xa, Za, kw["bandwidth"])
+    elif kind == "linear":
+        out = ref.linear_block_ref(Xa, Za)
+    else:
+        out = ref.poly_block_ref(Xa, Za, kw["degree"], kw["scale"],
+                                 kw["offset"])
+    return out.to(torch.bfloat16)
+
+
+def _bf16_kernel_checks(res: dict, keep: dict) -> dict:
+    """The three bf16 instances against their plain versions on the card,
+    at ragged shapes and at the shapes of the phase's paths; each cell's
+    largest share of its tolerance (the margin is its inverse)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rbf_block import kernel_block
+    from repro_torch.kernels.rls_scores import rls_scores_fused
+    from repro_torch.kernels.sparse_block import (prepare_landmarks,
+                                                  sparse_cross)
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shares: dict = {}
+
+    def note(key, err, share, what):
+        log(f"[bf16] {key} {what} max|Δ|={err:.3e}, {share:.3f} of the "
+            f"tolerance ({1 / max(share, 1e-30):.1f}x inside)")
+        check(share <= 1.0, f"bf16 {key}: {share:.3f} of its tolerance")
+        shares[key] = max(shares.get(key, 0.0), share)
+
+    kinds = {"rbf": dict(bandwidth=1.0), "linear": {},
+             "poly": dict(degree=3, scale=1.0, offset=1.0)}
+    # K1: d odd (2-byte rows), the MSD rows' 90 (4-byte), d = 4096
+    # (16-byte); f32 accumulation (bf16 tensor cores) and f64 (FP64 ones)
+    for n, p, d in [(1031, 257, 90), (8, 8, 1), (300, 129, 17),
+                    (4096, 2048, 90), (1031, 300, 4096),
+                    (PREDICT_BATCH, P, DIM), (1, P, DIM)]:
+        X = (torch.randn(n, d, generator=g, device="cuda") / d ** 0.5).to(bf)
+        Z = (torch.randn(p, d, generator=g, device="cuda") / d ** 0.5).to(bf)
+        for acc in (torch.float32, torch.float64):
+            for kind, kw in kinds.items():
+                got = kernel_block(X, Z, kind=kind, acc_dtype=acc, **kw)
+                check(got.dtype == bf and got.shape == (n, p),
+                      f"k1 bf16 returned {got.dtype} {tuple(got.shape)}")
+                want = _bf16_k1_plain(X, Z, kind, acc, **kw)
+                err, share = _bf16_share(got, want, BF16_STEP,
+                                         K1_TOL["float32"])
+                note(f"K1.{kind}.acc_{str(acc)[6:]}", err, share,
+                     f"(n,p,d)=({n},{p},{d})")
+    # K1 at the sparse cell's W = k(Z, Z) over bf16 landmark rows
+    _, Zs = _full_chunk(keep)
+    Zb = Zs.to(bf)
+    for kind in ("rbf", "linear"):
+        kw = dict(bandwidth=RCV1_BANDWIDTH) if kind == "rbf" else {}
+        got = kernel_block(Zb, Zb, kind=kind, **kw)
+        err, share = _bf16_share(got, _bf16_k1_plain(Zb, Zb, kind,
+                                                     torch.float32, **kw),
+                                 BF16_STEP, K1_TOL["float32"])
+        note(f"K1.{kind}.W", err, share, f"W {tuple(got.shape)} d={RCV1_DIM}")
+    # K2: bf16 B, M in the accumulation dtype
+    for p in (37, 600, 2048):
+        B, M = _scores_problem(5003, p, bf, g)
+        for acc in (torch.float32, torch.float64):
+            got = rls_scores_fused(B, M, acc_dtype=acc)
+            check(got.dtype == bf, f"k2 bf16 returned {got.dtype}")
+            want = ref.rls_scores_ref(B.to(acc), M.to(acc)).to(bf)
+            err, share = _bf16_share(got, want, BF16_STEP + K2_RTOL[
+                "float32"], 1e-6)
+            note(f"K2.acc_{str(acc)[6:]}", err, share, f"(n,p)=(5003,{p})")
+    # K3: ragged CSR against dense landmarks and landmark rows, and one
+    # full chunk of the sparse cell against its landmark rows
+    rng = np.random.default_rng(12)
+    X = _ragged_csr(rng, torch.float32)
+    Xb = type(X)(X.data.to(bf), X.indices, X.indptr, X.n_cols)
+    cases = [("ragged", Xb, torch.as_tensor(
+                 rng.standard_normal((257, 5000)) / 50 ** 0.5,
+                 device="cuda").to(bf), 8.0),
+             ("ragged, landmark rows", Xb,
+              _ragged_csr(rng, torch.float32).todense()[:257].to(bf)
+              .contiguous(), 1.0)]
+    C, Zc = _full_chunk(keep)
+    cases.append(("full chunk", type(C)(C.data.to(bf), C.indices, C.indptr,
+                                        C.n_cols), Zc.to(bf), RCV1_BANDWIDTH))
+    for label, Xs, Zl, h in cases:
+        for acc in (torch.float32, torch.float64):
+            prep = prepare_landmarks(Zl, acc)
+            for kind, kw in dict(kinds, rbf=dict(bandwidth=h)).items():
+                got = sparse_cross(Xs.data, Xs.indices, Xs.indptr, Zl,
+                                   kind=kind, acc_dtype=acc, prepared=prep,
+                                   **kw)
+                check(got.dtype == bf, f"k3 bf16 returned {got.dtype}")
+                want = ref.sparse_kernel_block_ref(
+                    Xs.data, Xs.indices, Xs.indptr, Zl, kind=kind,
+                    acc_dtype=acc, **kw)
+                err, share = _bf16_share(got, want, BF16_STEP,
+                                         K3_TOL["float32"])
+                note(f"K3.{kind}.acc_{str(acc)[6:]}", err, share,
+                     f"{label} {tuple(got.shape)}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return shares
+
+
+def _bf16_parity(tag: str, hop, plain, predict) -> dict:
+    """hopper against torch on the card, the same draws: scores by max
+    relative error, β by ‖Δβ‖/‖β‖, predictions by max |Δ| over max |y|."""
+    import torch
+    y_h, y_t = predict(hop), predict(plain)
+    s_h, s_t = hop.scores().double(), plain.scores().double()
+    b_h, b_t = hop.state().beta.double(), plain.state().beta.double()
+    torch.cuda.synchronize()
+    errs = {"scores": float(((s_h - s_t).abs() / s_t.abs()).max()),
+            "beta": float(torch.linalg.norm(b_h - b_t)
+                          / torch.linalg.norm(b_t)),
+            "predictions": float((y_h.double() - y_t.double()).abs().max()
+                                 / y_t.double().abs().max())}
+    for key, err in errs.items():
+        log(f"[bf16] {tag} parity hopper vs {plain.config.backend} at "
+            f"n={N_PARITY}: {key} "
+            f"{err:.3e} (tolerance {BF16_PARITY_TOL[tag][key]:g})")
+    for key, err in errs.items():
+        check(err <= BF16_PARITY_TOL[tag][key],
+              f"bf16 {tag} parity {key}: {err:.3e} > "
+              f"{BF16_PARITY_TOL[tag][key]:g}")
+    return errs
+
+
+def _k3_plain_backend() -> str:
+    """The name of a backend, registered once, that is ``torch`` except
+    for CSR blocks, which take K3's plain version on the card
+    (``ref.sparse_kernel_block_ref``): the function of the reference's
+    ``sparse_kernel_block``, and so of its ``pallas`` backend, which rounds
+    the cross product to the block dtype before the epilogue. ``torch``
+    follows the reference's ``xla`` backend there, which rounds only the
+    block; in bf16 the two routes part (``tools/bf16_parity_probe.py``), so
+    hopper's CSR path is held to this one."""
+    import dataclasses
+    import torch
+    from repro_torch.core import backends as tb
+    from repro_torch.data import CsrMatrix
+    from repro_torch.kernels import ref
+    name = "k3_plain"
+    if name in tb.BACKENDS:
+        return name
+
+    @tb.BACKENDS.register(name)
+    @dataclasses.dataclass(frozen=True)
+    class K3PlainOps(tb.TorchOps):
+        def cross(self, X_test, Z, *, prepared=None):
+            X_test, Z = self._cast_data(X_test, Z)
+            if not isinstance(X_test, CsrMatrix):
+                return self._gram(X_test, Z)
+            out = torch.promote_types(X_test.dtype, Z.dtype)
+            acc = self._accum(out)
+            return ref.sparse_kernel_block_ref(
+                X_test.data, X_test.indices, X_test.indptr, Z, kind="rbf",
+                bandwidth=self.kernel.bandwidth,
+                acc_dtype=out if acc is None else acc)
+
+    K3PlainOps.name = name
+    return name
+
+
+def phase_bf16(res: dict, keep: dict) -> None:
+    """The bf16 KRR paths at full width, each with its launch counts
+    zeroed before and read after: (a) the quantized server (a float32 fit
+    of the MSD rows served with Precision(serve_dtype="bf16")) through
+    predict_batched(256), AsyncServeEngine over a ModelSlot and
+    KRRServeEngine; (b) a fit from bf16 storage of the MSD rows; (c) a fit
+    of the RCV1 rows in bf16 CSR chunks. Each is held hopper against torch
+    on the card at n = 20,000 with the same draws ((c) against torch with
+    K3's plain version for the CSR blocks, ``_k3_plain_backend``); the
+    three bf16 kernel instances are first held against their plain
+    versions."""
+    import numpy as np
+    import torch
+    from repro_torch.api import (Precision, RBFKernel, SketchConfig,
+                                 SketchedKRR)
+    from repro_torch.core.leverage import draw_landmarks
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime import KRRRequest, KRRServeEngine
+    from repro_torch.serve import AsyncServeEngine, BatchPolicy
+    out: dict = {}
+    res["bf16"] = out
+    out["kernel_shares"] = _bf16_kernel_checks(res, keep)
+    Xtr, ytr, Xte, fte = _msd(keep)
+    f = torch.as_tensor(fte, device="cuda")
+    var_f = float(torch.var(f))
+
+    # (a) the quantized server: the main path's float32 model, served in
+    # bf16 blocks with the contraction in float32
+    rls, f32_mse = _msd_rls_fast(keep)
+    qcfg = SketchConfig(RBFKernel(BANDWIDTH), p=P, lam=LAM,
+                        precision=Precision(serve_dtype="bf16"))
+    quant = SketchedKRR(qcfg).import_serving_state(rls.export_serving_state())
+    quant.predict_batched(Xte[:PREDICT_BATCH], PREDICT_BATCH)   # warm-up
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    yq = quant.predict_batched(Xte, PREDICT_BATCH)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    batches = -(-N_TEST // PREDICT_BATCH)
+    mse_q = _mse(yq, fte)
+    st = quant.export_serving_state()
+    Xte_c = torch.as_tensor(Xte, device="cuda")
+    # one bf16 step of each term of an answer's contraction
+    scale = rls.ops().matvec(Xte_c, st.landmarks, st.beta.abs())
+    log(f"[bf16] (a) quantized predict_batched({PREDICT_BATCH}) over "
+        f"{N_TEST} rows: {pred_s:.3f} s = {N_TEST / pred_s:.0f} "
+        f"predictions/s, launches {counts}; test MSE vs f* {mse_q:.6f}, "
+        f"the float32 server's {f32_mse:.6f}, var(f*) {var_f:.4f}")
+    check(yq.dtype == torch.float32 and yq.shape == (N_TEST,),
+          f"(a) predictions {yq.dtype} {tuple(yq.shape)}")
+    check(bool(torch.isfinite(yq).all()), "(a) non-finite predictions")
+    check(counts["kernel_block"] == batches,
+          f"(a) K1 launched {counts['kernel_block']} times for {batches} "
+          "batches")
+    check(mse_q < var_f, f"(a) test MSE {mse_q:.4f} >= var(f*)")
+    # the torch backend on the card serves the same β and landmarks
+    plain_q = SketchedKRR(qcfg.replace(backend="torch")).import_serving_state(
+        st)
+    kops.reset_launch_counts()
+    yq_t = plain_q.predict_batched(Xte, PREDICT_BATCH)
+    check(sum(kops.launch_counts().values()) == 0,
+          f"(a) the torch backend launched {kops.launch_counts()}")
+    mse_qt = _mse(yq_t, fte)
+    gaps = {"hopper": abs(mse_q - f32_mse) / f32_mse,
+            "torch": abs(mse_qt - f32_mse) / f32_mse}
+    # the ceiling: one bf16 step of each term of an answer's contraction
+    share_a = float(torch.max((yq - yq_t).abs().double()
+                              / (BF16_STEP * scale.double() + 1e-6)))
+    log(f"[bf16] (a) quantized test MSE: hopper {mse_q:.6f}, torch "
+        f"{mse_qt:.6f}, relative gap to the float32 server's {gaps} "
+        f"(bound {QUANT_MSE_GAP:g}); hopper vs torch over the {N_TEST} test "
+        f"rows: max |Δ| {float((yq - yq_t).abs().max()):.3e}, "
+        f"{share_a:.3f} of the ceiling 2^-7 sum_j |k_j beta_j| + 1e-6")
+    for route, gap in gaps.items():
+        check(gap <= QUANT_MSE_GAP,
+              f"(a) {route}: quantized MSE {gap:.3e} from the float32 "
+              "server's")
+    check(share_a <= 1.0, f"(a) parity {share_a:.3f} of its ceiling")
+    out["a"] = dict(predict_s=pred_s, predictions_per_s=N_TEST / pred_s,
+                    launches=counts, test_mse=mse_q, torch_test_mse=mse_qt,
+                    f32_test_mse=f32_mse, mse_gaps=gaps, var_f_star=var_f,
+                    parity_share=share_a)
+    # the async serve plane over a ModelSlot of the quantized model
+    policy = BatchPolicy(max_batch=PREDICT_BATCH, max_wait_ms=2.0)
+
+    def serve_once():
+        eng = AsyncServeEngine({"q": quant}, policy=policy)
+        with eng:
+            subs, submit_s = _serve_clients(eng, Xte, np.arange(N_TEST),
+                                            ("q",))
+            got = [(i, fut.result(60)) for i, _, fut in subs]
+        return eng, got, submit_s
+
+    serve_once()                         # warm-up: each bucket once
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, got, submit_s = serve_once()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    stats = eng.stats()
+    yq_h = yq.cpu().numpy()
+    sc = scale.cpu().numpy()
+    worst_abs = max(abs(r.y_hat - float(yq_h[i])) for i, r in got)
+    worst = max(abs(r.y_hat - float(yq_h[i])) / float(sc[i]) for i, r in got)
+    log(f"[bf16] (a) AsyncServeEngine over a ModelSlot of the quantized "
+        f"model, {N_TEST} single-row requests from 4 threads: "
+        f"{N_TEST / wall:.0f} requests/s, p50 {stats.p50():.2f} ms, p99 "
+        f"{stats.p99():.2f} ms, {stats.batches} batches, K1 launches "
+        f"{counts['kernel_block']}; max |answer - predict_batched| "
+        f"{worst_abs:.3e} = {worst:.3e} of sum_j |k_j beta_j| (tolerance "
+        f"{QUANT_ANSWER_TOL:g})")
+    check(stats.served == N_TEST and len(got) == N_TEST,
+          f"(a) served {stats.served} of {N_TEST}")
+    check(counts["kernel_block"] == stats.batches,
+          f"(a) K1 launched {counts['kernel_block']} times for "
+          f"{stats.batches} batches")
+    check(worst <= QUANT_ANSWER_TOL, f"(a) an answer is {worst:.3e} of "
+          "sum_j |k_j beta_j| from predict_batched")
+    out["a"].update(requests_per_s=N_TEST / wall, p50_ms=stats.p50(),
+                    p99_ms=stats.p99(), batches=stats.batches,
+                    serve_launches=counts, answer_max_abs_dev=worst_abs,
+                    answer_max_rel_dev=worst)
+    del got
+    sync = KRRServeEngine(quant, batch_size=PREDICT_BATCH)
+    for i in range(N_TEST):
+        sync.submit(KRRRequest(i, Xte[i]))
+    done = sync.run(max_steps=N_TEST)
+    diff = max(abs(r.y_hat - float(yq_h[r.uid])) for r in done)
+    log(f"[bf16] (a) KRRServeEngine(batch_size={PREDICT_BATCH}) serving "
+        f"{sync.serve_dtype}: {len(done)} answers, max |answer - "
+        f"predict_batched({PREDICT_BATCH})| {diff:.3e}")
+    check(len(done) == N_TEST and diff == 0.0 and
+          sync.serve_dtype == "bfloat16",
+          f"(a) KRRServeEngine: {len(done)} answers, deviation {diff:.3e}")
+    del quant, plain_q, sync, done
+    torch.cuda.empty_cache()
+
+    # (b) a fit from bf16 storage of the MSD rows, float64 solves (R5)
+    bcfg = SketchConfig(RBFKernel(BANDWIDTH), p=P, lam=LAM,
+                        precision=Precision(**BF16_PRECISION))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = SketchedKRR(bcfg).fit(Xtr, ytr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = kops.launch_counts()
+    t0 = time.perf_counter()
+    yb = model.predict_batched(Xte, PREDICT_BATCH)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    scores = model.scores()
+    mse_b = _mse(yb, fte)
+    log(f"[bf16] (b) bf16 storage fit {fit_s:.3f} s (launches {fit_counts}),"
+        f" predict_batched {pred_s:.3f} s, launches after {counts}; peak "
+        f"{peak / 1e9:.2f} GB above {held / 1e9:.2f} GB held; test MSE vs "
+        f"f* {mse_b:.6f} (float32 cell {f32_mse:.6f}, var(f*) "
+        f"{var_f:.4f}); scores {scores.dtype} in "
+        f"[{float(scores.min()):.4g}, {float(scores.max()):.4g}], β "
+        f"{model.state().beta.dtype}")
+    check(scores.dtype == torch.bfloat16 and bool(torch.isfinite(
+        scores).all()) and float(scores.min()) >= 0.0
+        and float(scores.max()) <= 1.05, "(b) scores not in [0, 1.05]")
+    check(bool(torch.isfinite(yb).all()), "(b) non-finite predictions")
+    check(fit_counts["kernel_block"] >= 2 and fit_counts["rls_scores"] >= 1,
+          f"(b) fit launched {fit_counts}")
+    check(counts["kernel_block"] - fit_counts["kernel_block"] == batches,
+          f"(b) predict launched {counts}")
+    check(mse_b < var_f, f"(b) test MSE {mse_b:.4f} >= var(f*)")
+    out["b"] = dict(fit_s=fit_s, predict_s=pred_s, peak_bytes=peak,
+                    held_bytes=held, test_mse=mse_b, f32_test_mse=f32_mse,
+                    var_f_star=var_f, fit_launches=fit_counts,
+                    launches=counts,
+                    scores_range=[float(scores.min()), float(scores.max())])
+    del scores, yb
+    prof = _profile(lambda: (model.fit(Xtr, ytr),
+                             model.predict_batched(Xte, PREDICT_BATCH)))
+    _profile_line("(b) bf16 storage fit + predict", prof, fit_s + pred_s,
+                  "bf16")
+    out["b"]["profile"] = prof
+    del model
+    torch.cuda.empty_cache()
+    idx = draw_landmarks(torch.Generator().manual_seed(3),
+                         torch.full((N_PARITY,), 1.0 / N_PARITY), P)
+    sub = (Xtr[:N_PARITY], ytr[:N_PARITY])
+    hop = SketchedKRR(bcfg.replace(backend="hopper")).fit(
+        *sub, score_landmarks=idx)
+    plain = SketchedKRR(bcfg.replace(backend="torch")).fit(
+        *sub, score_landmarks=idx, sample=hop.sample())
+    out["b"]["parity"] = _bf16_parity(
+        "b", hop, plain, lambda m: m.predict(Xte[:N_PARITY_TEST]))
+    del hop, plain
+    torch.cuda.empty_cache()
+
+    # (c) the RCV1 rows in bf16 CSR chunks, accumulated in float64 as the
+    # sparse cell is (BF16_SPARSE_PRECISION: the bf16 rule's float32 fails
+    # at this n); then, at the parity size, hopper against K3's plain
+    # version under the cell's policy and under the bf16 rule (float32
+    # accumulation), which runs K3's and K1's bf16 / float32 instances on
+    # the path
+    rc = _rcv1(keep)
+    ccfg = SketchConfig(RBFKernel(RCV1_BANDWIDTH), p=P, lam=LAM,
+                        chunk_rows=CHUNK_ROWS,
+                        precision=Precision(**BF16_SPARSE_PRECISION))
+    f_c = torch.as_tensor(rc["f_test"], device="cuda")
+    var_c = float(torch.var(f_c))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = SketchedKRR(ccfg).fit(rc["train"], rc["y"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = kops.launch_counts()
+    t0 = time.perf_counter()
+    yc = model.predict(rc["test"])
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    mse_c = _mse(yc, rc["f_test"])
+    f32_c = res.get("sparse", {}).get("test_mse")
+    log(f"[bf16] (c) bf16 CSR chunk fit {fit_s:.3f} s (launches "
+        f"{fit_counts}), predict {pred_s:.3f} s = {RCV1_TEST / pred_s:.0f} "
+        f"predictions/s, launches after {counts}; peak {peak / 1e9:.2f} GB "
+        f"above {held / 1e9:.2f} GB held; test MSE vs f* {mse_c:.6f} (the "
+        f"sparse cell's {'not run' if f32_c is None else f'{f32_c:.6f}'}, "
+        f"var(f*) {var_c:.4f})")
+    check(bool(torch.isfinite(yc).all()), "(c) non-finite predictions")
+    check(bool(torch.isfinite(model.scores().float()).all()),
+          "(c) non-finite scores")
+    check(fit_counts["sparse_cross"] >= 18 and fit_counts["kernel_block"]
+          >= 2 and fit_counts["rls_scores"] == 0,
+          f"(c) fit launched {fit_counts}")
+    check(counts["sparse_cross"] > fit_counts["sparse_cross"],
+          f"(c) predict launched {counts}")
+    check(mse_c < var_c, f"(c) test MSE {mse_c:.4f} >= var(f*)")
+    out["c"] = dict(fit_s=fit_s, predict_s=pred_s, peak_bytes=peak,
+                    held_bytes=held, test_mse=mse_c, f32_test_mse=f32_c,
+                    var_f_star=var_c, fit_launches=fit_counts,
+                    launches=counts)
+    keep["bf16_sparse_Z"] = model.state().landmarks
+    del yc
+    prof = _profile(lambda: (model.fit(rc["train"], rc["y"]),
+                             model.predict(rc["test"])))
+    _profile_line("(c) bf16 CSR fit + predict", prof, fit_s + pred_s,
+                  "bf16")
+    out["c"]["profile"] = prof
+    del model
+    torch.cuda.empty_cache()
+    sub = _csr_rows(rc["train"], 0, N_PARITY)
+    test = _csr_rows(rc["test"], 0, N_PARITY_TEST)
+    f_sub = rc["f_test"][:N_PARITY_TEST]
+    for tag, policy in (("c", BF16_SPARSE_PRECISION),
+                        ("c_f32acc", BF16_PRECISION)):
+        pcfg = ccfg.replace(chunk_rows=PARITY_CHUNK,
+                            precision=Precision(**policy))
+        kops.reset_launch_counts()
+        hop = SketchedKRR(pcfg.replace(backend="hopper")).fit(
+            sub, rc["y"][:N_PARITY], score_landmarks=idx)
+        y_h = hop.predict(test)
+        torch.cuda.synchronize()
+        hop_counts = kops.launch_counts()
+        plain = SketchedKRR(pcfg.replace(backend=_k3_plain_backend())).fit(
+            sub, rc["y"][:N_PARITY], score_landmarks=idx,
+            sample=hop.sample())
+        errs = _bf16_parity(tag, hop, plain, lambda m: m.predict(test))
+        mse_h = _mse(y_h, f_sub)
+        log(f"[bf16] {tag} at n={N_PARITY} ({policy}): hopper launches "
+            f"{hop_counts}, test MSE {mse_h:.6f}")
+        check(hop_counts["sparse_cross"] > 0 and
+              hop_counts["kernel_block"] > 0, f"{tag}: {hop_counts}")
+        out[tag] = dict(out.get(tag, {}), parity=errs,
+                        parity_launches=hop_counts, parity_test_mse=mse_h)
+        del hop, plain, y_h
+        torch.cuda.empty_cache()
+
+def _ptxas_of(res: dict, lib: str, key: str) -> dict | None:
+    """The largest registers, spill stores and stack frame that ptxas -v
+    reported over the variants of one kernel (``key`` in its entry name)
+    in ``lib``'s build log; None where the build did not run here."""
+    import re
+    lines = [ln for ln in res.get("ptxas", {}).get(lib, []) if key in ln]
+    if not lines:
+        return None
+
+    def most(pattern):
+        vals = [int(m.group(1)) for ln in lines
+                for m in [re.search(pattern, ln)] if m]
+        return max(vals) if vals else None
+
+    return dict(registers=most(r"Used (\d+) registers"),
+                spill_store_bytes=most(r"(\d+) bytes spill stores"),
+                stack_bytes=most(r"(\d+) bytes stack frame"))
+
+
+def _bf16_k3_row(res: dict, Xc, Zw, acc, n_launch) -> dict:
+    """K3's bf16 row at one full chunk of the sparse cell (bf16 values)
+    against bf16 landmark rows, accumulated in ``acc``: the kernel, its
+    plain version, the linear kind, and torch.sparse.mm on bf16 CSR where
+    CUDA offers it. Bound at the peak of the CUDA cores' fma in ``acc``,
+    over the work that meets a non-zero of Z (the dense count beside)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparse_block import (prepare_landmarks,
+                                                  sparse_cross)
+    tag = f"bf16/{str(acc)[6:]}"
+    rows_n, p3, d3 = Xc.shape[0], Zw.shape[0], RCV1_DIM
+    nnz = int(Xc.indptr[-1])
+    args = (Xc.data, Xc.indices, Xc.indptr, Zw)
+    kw = dict(kind="rbf", bandwidth=RCV1_BANDWIDTH)
+    prep = prepare_landmarks(Zw, acc)
+    err, share = _bf16_share(
+        sparse_cross(*args, acc_dtype=acc, prepared=prep, **kw),
+        ref.sparse_kernel_block_ref(*args, acc_dtype=acc, **kw),
+        BF16_STEP, K3_TOL["float32"])
+    ms = cuda_ms(lambda: sparse_cross(*args, acc_dtype=acc, prepared=prep,
+                                      **kw), reps=10)
+    plain = cuda_ms(lambda: ref.sparse_kernel_block_ref(
+        *args, acc_dtype=acc, **kw), reps=3)
+    lin = cuda_ms(lambda: sparse_cross(*args, kind="linear", acc_dtype=acc,
+                                       prepared=prep), reps=10)
+    try:
+        A = torch.sparse_csr_tensor(Xc.indptr, Xc.indices[:nnz],
+                                    Xc.data[:nnz], size=(rows_n, d3),
+                                    check_invariants=False)
+        Zt = Zw.T.contiguous()
+        lib = cuda_ms(lambda: torch.sparse.mm(A, Zt), reps=10)
+        lib_note = "torch.sparse.mm on bf16 CSR (linear kind)"
+    except (RuntimeError, NotImplementedError) as exc:
+        lib = None
+        lib_note = (f"torch.sparse.mm does not take bf16 CSR here: "
+                    f"{str(exc).splitlines()[0][:120]}")
+    work3, _ = _k3_work(Xc, Zw)
+    prep_bytes = sum(t.numel() * t.element_size() for t in (
+        prep.zz, prep.hot_slot, prep.hot, prep.colptr, prep.ent_j,
+        prep.ent_z))
+    nbytes = 6 * nnz + 4 * (rows_n + 1) + 2 * rows_n * p3
+    peak = "float64" if acc == torch.float64 else "float32"
+    b3, by3 = _bound_ms(2 * work3 + 5 * rows_n * p3, nbytes + prep_bytes,
+                        peak)
+    dense3, dby3 = _bound_ms(2 * nnz * p3 + 5 * rows_n * p3,
+                             nbytes + 2 * d3 * p3, peak)
+    log(f"[summary] K3 {tag} rbf full chunk (rows,p,d)=({rows_n},{p3},{d3}), "
+        f"{nnz} values: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+        f"{b3:.3f} ms ({by3}; dense count {dense3:.3f} ms, {dby3}); linear "
+        f"kind {lin:.3f} ms; library: {lib_note} "
+        f"{'' if lib is None else f'{lib:.3f} ms'}; max|Δ| {err:.3e} "
+        f"({share:.3f} of the tolerance), launches on its path {n_launch}")
+    check(share <= 1.0, f"K3 {tag}: {share:.3f} of the tolerance")
+    return dict(name="sparse_cross", shape=f"{tag} full chunk",
+                dtype="bfloat16", acc=str(acc)[6:], route="cuda",
+                ptxas=_ptxas_of(res, "sparse_cross",
+                                "sparse_cross_kernelI13__nv_bfloat16"
+                                + ("d" if acc == torch.float64 else "f")),
+                source="src/repro_torch/kernels/csrc/sparse_cross.cu",
+                replaces="src/repro/kernels/sparse_block.py:149",
+                launches=n_launch, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b3, bound_by=by3, library_ms=lib,
+                dense_bound_ms=dense3, dense_bound_by=dby3,
+                tolerance_share=share, library_fn=lib_note,
+                library_kernel_ms=lin)
+
+
+def _bf16_w_row(res: dict, Zw, acc, n_launch) -> dict:
+    """K1's bf16 row at the sparse cell's W = k(Z, Z) over bf16 landmark
+    rows, accumulated in ``acc`` (float32: the bf16 tensor cores; float64:
+    the FP64 ones), bound over the work this Z needs at that peak."""
+    import torch
+    from repro_torch.kernels.rbf_block import kernel_block
+    tag = f"bf16/{str(acc)[6:]}"
+    peak, warp = (("float64", (32, 32, 8)) if acc == torch.float64
+                  else ("bfloat16", (64, 32, 16)))
+    bw_, byw, work, mma = _k1_w_bound(Zw, peak, warp)
+    kw = dict(kind="rbf", bandwidth=RCV1_BANDWIDTH, acc_dtype=acc)
+    err, share = _bf16_share(kernel_block(Zw, Zw, **kw),
+                             _bf16_k1_plain(Zw, Zw, "rbf", acc,
+                                            bandwidth=RCV1_BANDWIDTH),
+                             BF16_STEP, K1_TOL["float32"])
+    ms = cuda_ms(lambda: kernel_block(Zw, Zw, **kw), reps=10)
+    plain = cuda_ms(lambda: _bf16_k1_plain(Zw, Zw, "rbf", acc,
+                                           bandwidth=RCV1_BANDWIDTH), reps=3)
+    lin = cuda_ms(lambda: kernel_block(Zw, Zw, kind="linear", acc_dtype=acc),
+                  reps=10)
+    mm = cuda_ms(lambda: torch.matmul(Zw, Zw.T), reps=10)
+    log(f"[summary] K1 {tag} rbf W (n,p,d)=({Zw.shape[0]},{Zw.shape[0]},"
+        f"{Zw.shape[1]}): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bw_:.4f} ms ({byw}; the work Z needs is {100 * work:.3f} % of the "
+        f"dense products, the warp steps that run {100 * mma:.2f} %); linear "
+        f"kind {lin:.4f} ms, torch.matmul on the bf16 operands {mm:.4f} ms; "
+        f"max|Δ| {err:.3e} ({share:.3f} of the tolerance), launches on its "
+        f"path {n_launch}")
+    check(share <= 1.0, f"K1 {tag} W: {share:.3f} of the tolerance")
+    return _k1_row(f"{tag} W", n_launch, err, ms, plain, bw_, byw, mm,
+                   dtype="bfloat16", acc=str(acc)[6:], tolerance_share=share,
+                   ptxas=_ptxas_of(res, "kernel_block",
+                                   "mma6kernelI13__nv_bfloat16"
+                                   if acc == torch.float64 else "hmma"),
+                   linear_ms=lin, work_share=work, mma_share=mma,
+                   library_fn="torch.matmul on the bf16 operands against "
+                              "the linear kind")
+
+
+def _summary_bf16(res: dict, keep: dict) -> list[dict]:
+    """The bf16 instances' rows at phase bf16's shapes: K1 at the fit's
+    block (463,715, 2048, 90) and a predict batch (256, 2048, 90), with the
+    linear kind beside torch.matmul on the bf16 operands (cuBLAS); K2 at
+    (463,715, 2048) beside the einsum on upcast B; K1 at the sparse cell's
+    W = k(Z, Z) over bf16 landmark rows and K3 at one full chunk of it, in
+    float64 accumulation (the cell's, at full width) and float32 (the bf16
+    rule, on the parity path), K3 beside torch.sparse.mm in bf16 where CUDA
+    offers it. Bounds at the peak of the arithmetic that runs: the bf16 or
+    FP64 tensor cores for K1, TF32 for K2's two products, the CUDA cores'
+    fma for K3."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rbf_block import kernel_block
+    from repro_torch.kernels.rls_scores import rls_scores_fused
+    bf, f32 = torch.bfloat16, torch.float32
+    b16 = res.get("bf16", {})
+
+    def launches(path, kernel, key="fit_launches"):
+        return b16.get(path, {}).get(key, {}).get(kernel)
+
+    for name in ("kernel_block", "rls_scores", "sparse_cross"):
+        for line in res.get("ptxas", {}).get(name, []):
+            if "bfloat16" in line or "hmma" in line:
+                log(f"[summary] ptxas bf16 {name}: {line}")
+    rows = []
+    Xf = torch.as_tensor(_msd(keep)[0], device="cuda")
+    n, d = Xf.shape
+    X = Xf.to(bf)
+    del Xf
+    Z = X[torch.randperm(n, generator=torch.Generator().manual_seed(6))[:P]
+          .cuda()].contiguous()
+
+    def k1_row(label, Xs, n_launch, reps):
+        rows_n = Xs.shape[0]
+        kw = dict(kind="rbf", bandwidth=BANDWIDTH)
+        err, share = _bf16_share(kernel_block(Xs, Z, **kw),
+                                 _bf16_k1_plain(Xs, Z, "rbf", f32,
+                                                bandwidth=BANDWIDTH),
+                                 BF16_STEP, K1_TOL["float32"])
+        ms = cuda_ms(lambda: kernel_block(Xs, Z, **kw), reps=reps)
+        plain = cuda_ms(lambda: _bf16_k1_plain(Xs, Z, "rbf", f32,
+                                               bandwidth=BANDWIDTH),
+                        reps=reps)
+        lin = cuda_ms(lambda: kernel_block(Xs, Z, kind="linear"), reps=reps)
+        mm = cuda_ms(lambda: torch.matmul(Xs, Z.T), reps=reps)
+        ops = 2 * rows_n * P * d + 2 * (rows_n + P) * d + 5 * rows_n * P
+        b, by = _bound_ms(ops, 2 * (rows_n * d + P * d + rows_n * P),
+                          "bfloat16")
+        log(f"[summary] K1 bf16/float32 rbf {label} (n,p,d)=({rows_n},{P},"
+            f"{d}) (bf16 tensor cores): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {b:.4f} ms ({by}); linear kind "
+            f"{lin:.4f} ms, torch.matmul on the bf16 operands {mm:.4f} ms; "
+            f"max|Δ| {err:.3e} ({share:.3f} of the tolerance), launches on "
+            f"its path {n_launch}")
+        check(share <= 1.0, f"K1 bf16 {label}: {share:.3f} of tolerance")
+        return _k1_row(f"bf16/float32 {label}", n_launch, err, ms, plain, b,
+                       by, mm, dtype="bfloat16", acc="float32",
+                       tolerance_share=share, linear_ms=lin,
+                       ptxas=_ptxas_of(res, "kernel_block", "hmma"),
+                       library_fn="torch.matmul on the bf16 operands "
+                                  "against the linear kind")
+
+    rows.append(k1_row("fit", X, launches("b", "kernel_block"), 10))
+    rows.append(k1_row("predict", X[:PREDICT_BATCH],
+                       launches("a", "kernel_block", "launches"), 100))
+    del X, Z
+    torch.cuda.empty_cache()
+
+    # K2: bf16 B (the score pass's), M in float32
+    B, M = _scores_problem(N_TRAIN, P, bf,
+                           torch.Generator(device="cuda").manual_seed(4))
+    Mf = M.float()
+    del M
+    Bf = B.float()
+    err, share = _bf16_share(rls_scores_fused(B, Mf),
+                             ref.rls_scores_ref(Bf, Mf).to(bf),
+                             BF16_STEP + K2_RTOL["float32"], 1e-6)
+    ms = cuda_ms(lambda: rls_scores_fused(B, Mf), reps=3)
+    plain = cuda_ms(lambda: ref.rls_scores_ref(B.float(), Mf).to(bf), reps=3)
+    lib = cuda_ms(lambda: torch.einsum("ij,jk,ik->i", Bf, Mf, Bf), reps=3)
+    n2, p2 = B.shape
+    nbytes = 2 * n2 * p2 + 4 * p2 * p2 + 2 * n2
+    b2, by2 = _bound_ms(2 * 2 * n2 * p2 * p2 + 2 * n2 * p2, nbytes, "tf32")
+    ieee2, _ = _bound_ms(2 * n2 * p2 * p2 + 2 * n2 * p2, nbytes, "float32")
+    log(f"[summary] K2 bf16/float32 (n,p)=({n2},{p2}) (2xTF32): kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, einsum on upcast B {lib:.3f} ms, "
+        f"bound {b2:.3f} ms ({by2}; IEEE float32 {ieee2:.3f} ms), max|Δ| "
+        f"{err:.3e} ({share:.3f} of the tolerance), launches on its path "
+        f"{launches('b', 'rls_scores')}")
+    check(share <= 1.0, f"K2 bf16: {share:.3f} of the tolerance")
+    rows.append(dict(name="rls_scores", shape="bf16/float32 fit",
+                     dtype="bfloat16", acc="float32", route="cuda",
+                     source="src/repro_torch/kernels/csrc/rls_scores.cu",
+                     replaces="src/repro/kernels/rls_scores.py:37",
+                     launches=launches("b", "rls_scores"), max_abs_err=err,
+                     ms=ms, plain_ms=plain, bound_ms=b2, bound_by=by2,
+                     library_ms=lib, ieee_f32_bound_ms=ieee2,
+                     tolerance_share=share,
+                     ptxas=_ptxas_of(res, "rls_scores",
+                                     "rls_scores_tf32x3I13__nv_bfloat16"),
+                     library_fn="einsum on float32 copies of B"))
+    del B, Bf, Mf
+    torch.cuda.empty_cache()
+
+    # W = k(Z, Z) and one chunk of the sparse cell: float64 accumulation at
+    # full width (the cell's policy), float32 on the parity path
+    C, Zs = _full_chunk(keep)
+    Zw = keep.get("bf16_sparse_Z", Zs).to(bf).contiguous()
+    Xc = type(C)(C.data.to(bf), C.indices, C.indptr, C.n_cols)
+    for acc, path, key in ((torch.float64, "c", "fit_launches"),
+                           (f32, "c_f32acc", "parity_launches")):
+        rows.append(_bf16_w_row(res, Zw, acc,
+                                launches(path, "kernel_block", key)))
+        rows.append(_bf16_k3_row(res, Xc, Zw, acc, launches(
+            path, "sparse_cross",
+            "launches" if path == "c" else "parity_launches")))
+    return rows
+
 def _summary_slice7(res: dict, keep: dict) -> list[dict]:
     """The rows of the shapes phase samplers and phase serve run: K1's
     FP64-tensor-core build (float32 data, float64 accumulation) at a bless
@@ -3092,15 +3885,19 @@ def _k1_bound(n: int, p: int, d: int, dtype: str,
     return _bound_ms(ops, itemsize * (n * d + p * d + n * p), dtype)
 
 
-def _k1_w_bound(Z) -> tuple[float, str, float, float]:
+def _k1_w_bound(Z, dtype: str = "float64",
+                warp: tuple[int, int, int] = (32, 32, 8)
+                ) -> tuple[float, str, float, float]:
     """The bound of W = k(Z, Z) over the work this Z needs: 2·Σ_c nnz_Z(c)²
     products (a zero of Z adds nothing), the norms over Z's non-zeros and
     the epilogue, against Z read twice and W written once, as K3's bound
-    counts Σ_c nnz_X(c)·nnz_Z(c). Also returned, as shares of the dense
-    2·p²·d: that work, and the operations that the FP64 tensor-core build
-    runs, a warp's step of 2·32·32·8 (8 m16n8k8 products) for each pair of
-    32-row blocks of Z that both hold a non-zero in the same 8-column
-    block (the warps skip the other steps, which add exact zeros)."""
+    counts Σ_c nnz_X(c)·nnz_Z(c), at the peak of ``dtype``. Also returned,
+    as shares of the dense 2·p²·d: that work, and the operations that the
+    tensor-core build runs: a warp's step over ``warp`` = (its rows of X,
+    its rows of Z, its k-values) for each pair of such row blocks of Z
+    that both hold a non-zero in the same block of k-values (the warps
+    skip the other steps, which add exact zeros): (32, 32, 8) for the FP64
+    build, (64, 32, 16) for the bf16 one."""
     import torch
     p, d = Z.shape
     nz = Z != 0
@@ -3108,13 +3905,17 @@ def _k1_w_bound(Z) -> tuple[float, str, float, float]:
     work = 2 * float((counts * counts).sum())
     ops = work + 2 * 2 * float(counts.sum()) + 5 * p * p
     bound, by = _bound_ms(ops, Z.element_size() * (2 * p * d + p * p),
-                          "float64")
-    k8 = -(-d // 8)
-    pad = torch.zeros((-(-p // 32) * 32, k8 * 8), dtype=torch.bool,
-                      device=Z.device)
-    pad[:p, :d] = nz
-    live = pad.view(-1, 32, k8, 8).any(dim=3).any(dim=1).sum(0)
-    mma = float(2 * 32 * 32 * 8 * int((live * live).sum()))
+                          dtype)
+    ra, rb, kw = warp
+    kb = -(-d // kw)
+
+    def live(rows):
+        pad = torch.zeros((-(-p // rows) * rows, kb * kw), dtype=torch.bool,
+                          device=Z.device)
+        pad[:p, :d] = nz
+        return pad.view(-1, rows, kb, kw).any(dim=3).any(dim=1).sum(0)
+
+    mma = float(2 * ra * rb * kw * int((live(ra) * live(rb)).sum()))
     dense = 2 * p * p * d
     return bound, by, work / dense, mma / dense
 
@@ -3493,6 +4294,8 @@ def phase_summary(res: dict, keep: dict) -> None:
         rows.extend(_summary_families(res))
     if "samplers" in res or "serve" in res:
         rows.extend(_summary_slice7(res, keep))
+    if "bf16" in res:
+        rows.extend(_summary_bf16(res, keep))
     res["kernels"] = rows
 
 
@@ -3541,6 +4344,25 @@ def phase_limits(res: dict, keep: dict) -> None:
         f"{100 * rate['matmul'] / PEAK_OPS['float32']:.0f} % of the float32 "
         f"peak)")
     res["k1_d_sweep_ms"] = {str(k): v for k, v in sweep.items()}
+    # K2's bf16 build through the wrapper, which does not limit p there:
+    # its scores against float64 scores, and its share of the bf16
+    # tolerance against the plain version
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for p in (2048, 4096, 8192):
+        n = 5003
+        B, M = _scores_problem(n, p, torch.bfloat16, g)
+        got = rls_scores.rls_scores_fused(B, M)
+        exact = ref.rls_scores_ref(B.double(), M)
+        rel = float(((got.double() - exact).abs() / exact.abs()).max())
+        _, share = _bf16_share(got, ref.rls_scores_ref(
+            B.float(), M.float()).to(torch.bfloat16),
+            BF16_STEP + K2_RTOL["float32"], 1e-6)
+        log(f"[limits] K2 bf16 (2xTF32) (n,p)=({n},{p}): max rel Δ from "
+            f"float64 scores {rel:.3e} (a bf16 step is {BF16_STEP:.3e}); "
+            f"{share:.3f} of the bf16 tolerance against the plain version")
+        check(share <= 1.0, f"K2 bf16 at p={p}: {share:.3f} of tolerance")
+        res.setdefault("k2_bf16_by_p", {})[str(p)] = dict(
+            rel_to_float64=rel, tolerance_share=share)
 
 
 # -------------------------------------------------------------------- main
@@ -3601,6 +4423,8 @@ def main() -> int:
             phase_samplers(res, keep)
         elif name == "serve":
             phase_serve(res, keep)
+        elif name == "bf16":
+            phase_bf16(res, keep)
         elif name == "lm":
             phase_lm(res, keep)
         elif name == "train":

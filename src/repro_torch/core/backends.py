@@ -237,10 +237,14 @@ class KernelOps:
         return self.cross(X, X[idx])
 
     def _contract(self, Kb: Tensor, v: Tensor) -> tuple[Tensor, Tensor]:
-        acc = self._accum(torch.promote_types(Kb.dtype, v.dtype))
-        if acc is None:
-            return Kb, v
-        return Kb.to(acc), v.to(acc)
+        """Kb and v in one dtype: ``accum_dtype`` when the policy sets it,
+        else their promotion, as ``jnp`` promotes ``bf16 @ f32`` to f32 (a
+        bf16 block meets a wider dual on the quantized serve path and under
+        bf16 storage)."""
+        dt = torch.promote_types(Kb.dtype, v.dtype)
+        acc = self._accum(dt)
+        dt = dt if acc is None else acc
+        return Kb.to(dt), v.to(dt)
 
     def matvec(self, X: Tensor, Z: Tensor, v: Tensor) -> Tensor:
         """k(X, Z) @ v — contraction in ``accum_dtype`` when set."""

@@ -6,11 +6,11 @@
 //                      1 linear x.z
 //                      2 poly   (x.z / scale + offset)^degree
 //
-// Two designs, one per accumulation type. Both walk d in k-slabs staged
-// through shared memory, accumulate the squared norms |x|^2 and |z|^2 from
-// the same staged slabs (no norm pass), mask the ragged n, p and d edges in
-// the loads and the stores (no padding copies), and fuse the epilogue, so C
-// is written once and never read back. The grid is one-dimensional with the
+// Three designs: one per accumulation type, and one for bf16 data. All
+// walk d in k-slabs staged through shared memory, accumulate the squared
+// norms |x|^2 and |z|^2 from the same staged slabs (no norm pass), mask the
+// ragged n, p and d edges in the loads and the stores (no padding copies),
+// and fuse the epilogue, so C is written once and never read back. The grid is one-dimensional with the
 // column tiles fastest: consecutive blocks share an X row tile, which then
 // comes from L2.
 //
@@ -46,7 +46,28 @@
 // so the result is the same bit for bit, and the densified landmark rows of
 // the sparse path, 99.8 % zeros, skip most of their products. The tile of
 // accumulators leaves registers through shared memory before the epilogue
-// (the float64 exp is a call; live accumulators across it spilled).
+// (the float64 exp is a call; live accumulators across it spilled). bf16
+// data accumulated in float64 runs this body too, widening bf16 as the
+// fragments load (7 stages of 80-byte rows).
+//
+// bf16 data, float32 accumulation (the reference's rule for bf16 blocks):
+// the bf16 tensor cores, mma.sync.m16n8k16 .bf16 with float32 accumulators.
+// A bf16 product is exact in float32, so the tensor cores compute what the
+// reference computes up to the order of the sum; the norms are summed from
+// the staged values upcast to float32, the epilogue runs in float32 and the
+// block is rounded to bf16 once (round-to-nearest-even). Bound on an H100
+// SXM at the main path's shape (n = 463,715, p = 2048, d = 90): 1.9 GB of
+// bf16 output, 0.57 ms at 3.35 TB/s, against 1.71e11 operations, 0.17 ms at
+// 989 TFLOP/s: bytes. A block of 8 warps owns a 128 x 128 tile, each warp a
+// 64 x 32 part of it (4 x 4 m16n8 tiles), over 32-deep slabs that cp.async
+// keeps four stages deep (80 KB, two blocks an SM); fragments are 4-byte
+// shared-memory loads of bf16 pairs, rows 80 bytes apart. As in the float64
+// body, ballots mark each staged row's non-zero 16-value k-steps and a warp
+// skips a step whose rows of X or of Z are all zero there (the sparse path's
+// densified landmark rows). The accumulators leave registers through
+// shared memory before the epilogue, which then takes a pair of
+// neighbouring columns a thread, a warp along a row, stored as one 4-byte
+// bf16 pair.
 #include "tile.cuh"
 
 using namespace repro_tile;
@@ -318,22 +339,27 @@ int launch_bytes(const T* X, const T* Z, T* out, int n, int p, int d,
 
 namespace dmma {
 
-constexpr int BM = 128, BN = 128, BK = 32, LD = BK + 4;
+constexpr int BM = 128, BN = 128, BK = 32;
+// staged rows padded to 144 (float32), 288 (float64) or 80 (bf16) bytes:
+// 16-byte aligned, and the fragment loads hit distinct banks
+template <typename T> constexpr int LDT = BK + (sizeof(T) == 2 ? 8 : 4);
 constexpr int WARPS_M = 4, WARPS_N = 4, THREADS = 32 * WARPS_M * WARPS_N;
 constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // 32 x 32 a warp
 constexpr int MT = WM / 16, NT = WN / 8;             // m16 and n8 tiles
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(WM == 32 && WN == 32, "a warp's rows are one 32-row mask word");
 
-// slabs in flight: 180 KB (float32) or 216 KB (float64) of shared memory,
-// one block an SM; the copies, not the products, set the pace on sparse rows
-template <typename T> constexpr int STAGES = sizeof(T) == 4 ? 5 : 3;
+// slabs in flight: 180 KB (float32), 216 KB (float64) or 140 KB (bf16) of
+// shared memory, one block an SM; the copies, not the products, set the
+// pace on sparse rows
+template <typename T>
+constexpr int STAGES = sizeof(T) == 4 ? 5 : sizeof(T) == 8 ? 3 : 7;
 // the tile of accumulators in shared memory for the epilogue, rows padded
 constexpr int CT_LD = BN + 2;
 
 template <typename T>
 __host__ __device__ constexpr int smem_bytes() {
-  return STAGES<T> * (BM + BN) * LD * (int)sizeof(T);
+  return STAGES<T> * (BM + BN) * LDT<T> * (int)sizeof(T);
 }
 
 // D = A B + D for one m16n8k8 tile; fragments as the PTX ISA lays them out
@@ -354,7 +380,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 kernel(const T* __restrict__ X, const T* __restrict__ Z, T* __restrict__ out,
        int n, int p, int d, int kind, double two_h2, double scale,
        double offset, int degree, int col_tiles) {
-  constexpr int STAGE = (BM + BN) * LD;
+  constexpr int LD = LDT<T>, STAGE = (BM + BN) * LD;
   static_assert(BM * CT_LD * (int)sizeof(double) <= smem_bytes<T>(),
                 "the tile of accumulators fits the stages it reuses");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -407,7 +433,7 @@ kernel(const T* __restrict__ X, const T* __restrict__ Z, T* __restrict__ out,
 
     const T* base = sm + (it % S) * STAGE;
     if (tid < BM + BN) {  // whole warps: thread t owns staged row t
-      T v[BK];  // 16-byte loads: rows 144 or 288 bytes apart, no conflicts
+      T v[BK];  // 16-byte loads: rows 144, 288 or 80 bytes apart, no conflicts
 #pragma unroll
       for (int k = 0; k < BK; k += 16 / (int)sizeof(T)) {
         const uint4 raw = *reinterpret_cast<const uint4*>(base + tid * LD + k);
@@ -417,13 +443,16 @@ kernel(const T* __restrict__ X, const T* __restrict__ Z, T* __restrict__ out,
 #pragma unroll
       for (int h = 0; h < BK / 8; ++h) nz[h] = false;
 #pragma unroll
-      for (int k = 0; k < BK; ++k) nz[k / 8] |= v[k] != T(0);
+      for (int k = 0; k < BK; ++k) nz[k / 8] |= !is_zero(v[k]);
       bool any = false;
 #pragma unroll
       for (int h = 0; h < BK / 8; ++h) any |= nz[h];
       if (any) {
 #pragma unroll
-        for (int k = 0; k < BK; ++k) sq = fma(double(v[k]), double(v[k]), sq);
+        for (int k = 0; k < BK; ++k) {
+          const double w = widen<double>(v[k]);
+          sq = fma(w, w, sq);
+        }
       }
 #pragma unroll
       for (int h = 0; h < BK / 8; ++h) {
@@ -445,17 +474,17 @@ kernel(const T* __restrict__ X, const T* __restrict__ Z, T* __restrict__ out,
 #pragma unroll
       for (int ni = 0; ni < NT; ++ni) {
         const T* q = Bs + (ni * 8 + g) * LD + kk + t;
-        b[ni][0] = double(q[0]);
-        b[ni][1] = double(q[4]);
+        b[ni][0] = widen<double>(q[0]);
+        b[ni][1] = widen<double>(q[4]);
       }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
         const T* q = As + (mi * 16 + g) * LD + kk + t;
         double a[4];
-        a[0] = double(q[0]);
-        a[1] = double(q[8 * LD]);
-        a[2] = double(q[4]);
-        a[3] = double(q[8 * LD + 4]);
+        a[0] = widen<double>(q[0]);
+        a[1] = widen<double>(q[8 * LD]);
+        a[2] = widen<double>(q[4]);
+        a[3] = widen<double>(q[8 * LD + 4]);
 #pragma unroll
         for (int ni = 0; ni < NT; ++ni) mma(acc[mi][ni], a, b[ni]);
       }
@@ -488,8 +517,8 @@ kernel(const T* __restrict__ X, const T* __restrict__ Z, T* __restrict__ out,
     const int lr = e / BN, lc = e % BN;
     const int64_t r = row0 + lr, c = col0 + lc;
     if (r < n && c < p)
-      out[r * p + c] = T(finish(ct[lr * CT_LD + lc], xx[lr], zz[lc], kind,
-                                two_h2, scale, offset, degree));
+      out[r * p + c] = narrow<T>(finish(ct[lr * CT_LD + lc], xx[lr], zz[lc],
+                                        kind, two_h2, scale, offset, degree));
   }
 }
 
@@ -512,6 +541,220 @@ int launch_bytes(const T* X, const T* Z, T* out, int n, int p, int d,
 }
 
 }  // namespace dmma
+
+// -------------------------- bf16 data, float32 accumulation: bf16 tensor cores
+
+namespace hmma {
+
+constexpr int BM = 128, BN = 128, BK = 32;
+constexpr int LD = BK + 8;  // staged rows 80 bytes apart: 16-byte aligned,
+                            // fragment words on distinct banks
+constexpr int WARPS_M = 2, WARPS_N = 4, THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // 64 x 32 a warp
+constexpr int MT = WM / 16, NT = WN / 8;             // m16 and n8 tiles
+constexpr int KS = 16;                               // k of one mma
+constexpr int STAGES = 4;
+constexpr int STAGE = (BM + BN) * LD;                // bf16 values
+constexpr int SMEM = STAGES * STAGE * (int)sizeof(bf16);  // 80 KB: two an SM
+// the tile of accumulators in shared memory for the epilogue: rows 136
+// floats apart, so a warp's float2 writes of its fragments hit distinct
+// banks in each half
+constexpr int CT_LD = BN + 8;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(THREADS == BM + BN, "one thread per staged row");
+static_assert(BM * CT_LD * (int)sizeof(float) <= SMEM,
+              "the tile of accumulators fits the stages it reuses");
+static_assert(WM == 64 && WN == 32, "a warp's rows are whole mask words");
+
+// D = A B + D for one m16n8k16 tile with bf16 operands and float32
+// accumulators; fragments as the PTX ISA lays them out (g = lane / 4,
+// t = lane % 4, two bf16 a register, the lower k in the low half):
+// a = A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..];
+// b = B[2t..][g], B[2t+8..][g]; c = D[g][2t], D[g][2t+1], D[g+8][2t],
+// D[g+8][2t+1]
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t word(const bf16* q) {
+  return *reinterpret_cast<const uint32_t*>(q);
+}
+
+template <int BYTES>
+__global__ void __launch_bounds__(THREADS, 2)
+kernel(const bf16* __restrict__ X, const bf16* __restrict__ Z,
+       bf16* __restrict__ out, int n, int p, int d, int kind, float two_h2,
+       float scale, float offset, int degree, int col_tiles, bool pairs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  __shared__ float xx[BM], zz[BN];
+  // bit r of live[h][w]: staged row 32 w + r (X rows, then Z rows) has a
+  // non-zero among the slab's k-values 16 h .. 16 h + 15
+  __shared__ unsigned live[BK / KS][(BM + BN) / 32];
+
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(FULL, tid / 32, 0), lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * BM;
+  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * BN;
+  const int kt = (d + BK - 1) / BK;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  float sq = 0.f;  // thread t < BM: |x_t|^2; else |z_{t - BM}|^2
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < kt) {
+      stage_slab<bf16, BM, BK, LD, BYTES, THREADS>(sm + s * STAGE, X, row0, n,
+                                                   s * BK, d);
+      stage_slab<bf16, BN, BK, LD, BYTES, THREADS>(sm + s * STAGE + BM * LD,
+                                                   Z, col0, p, s * BK, d);
+    }
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < kt; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slab it visible; slot it - 1 and `live` free
+    const int next = it + STAGES - 1;
+    if (next < kt) {
+      bf16* st = sm + (next % STAGES) * STAGE;
+      stage_slab<bf16, BM, BK, LD, BYTES, THREADS>(st, X, row0, n, next * BK,
+                                                   d);
+      stage_slab<bf16, BN, BK, LD, BYTES, THREADS>(st + BM * LD, Z, col0, p,
+                                                   next * BK, d);
+    }
+    cp_async_commit();
+
+    const bf16* base = sm + (it % STAGES) * STAGE;
+    {  // thread t owns staged row t: its squares (from the upcast values,
+       // two bf16 a 32-bit word, the lower k in the low half) and the
+       // masks of its non-zero k-steps
+      const uint4* row = reinterpret_cast<const uint4*>(base + tid * LD);
+      bool nz[BK / KS];
+#pragma unroll
+      for (int h = 0; h < BK / KS; ++h) nz[h] = false;
+#pragma unroll
+      for (int q = 0; q < BK / 8; ++q) {
+        const uint4 raw = row[q];
+        const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lo = __uint_as_float(w[e] << 16);
+          const float hi = __uint_as_float(w[e] & 0xffff0000u);
+          nz[8 * q / KS] |= lo != 0.f || hi != 0.f;
+          sq = fmaf(lo, lo, sq);
+          sq = fmaf(hi, hi, sq);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < BK / KS; ++h) {
+        const unsigned m = __ballot_sync(FULL, nz[h]);
+        if (lane == 0) live[h][warp] = m;
+      }
+    }
+    __syncthreads();  // the masks
+
+    const bf16* As = base + wm * WM * LD;
+    const bf16* Bs = base + (BM + wn * WN) * LD;
+#pragma unroll
+    for (int h = 0; h < BK / KS; ++h) {
+      // a warp step whose rows of X or of Z are all zero in these 16
+      // k-values adds exact zeros: skipped (warp-uniform masks)
+      if ((live[h][2 * wm] | live[h][2 * wm + 1]) == 0 ||
+          live[h][BM / 32 + wn] == 0)
+        continue;
+      const int kk = KS * h + 2 * t;
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const bf16* q = Bs + (ni * 8 + g) * LD + kk;
+        b[ni][0] = word(q);
+        b[ni][1] = word(q + 8);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const bf16* q = As + (mi * 16 + g) * LD + kk;
+        const uint32_t a[4] = {word(q), word(q + 8 * LD), word(q + 8),
+                               word(q + 8 * LD + 8)};
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) mma(acc[mi][ni], a, b[ni]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (tid < BM) {
+    xx[tid] = sq;
+  } else {
+    zz[tid - BM] = sq;
+  }
+  __syncthreads();  // every warp is done with the stages: the tile goes
+                    // through them, so no accumulator is live in the epilogue
+  float* ct = reinterpret_cast<float*>(smem_raw);  // [BM][CT_LD]
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int lr = wm * WM + mi * 16 + g + 8 * hh;
+        const int lc = wn * WN + ni * 8 + 2 * t;
+        *reinterpret_cast<float2*>(ct + lr * CT_LD + lc) =
+            make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+      }
+  __syncthreads();
+  // two neighbouring columns a thread, a warp along a row: rounded to bf16
+  // once and stored as one 4-byte pair where p is even
+  for (int e = tid; e < BM * BN / 2; e += THREADS) {
+    const int lr = e / (BN / 2), lc = 2 * (e % (BN / 2));
+    const int64_t r = row0 + lr, c = col0 + lc;
+    if (r >= n) continue;
+    const float v0 = finish(ct[lr * CT_LD + lc], xx[lr], zz[lc], kind, two_h2,
+                            scale, offset, degree);
+    const float v1 = finish(ct[lr * CT_LD + lc + 1], xx[lr], zz[lc + 1], kind,
+                            two_h2, scale, offset, degree);
+    bf16* o = out + r * p + c;
+    if (pairs && c + 1 < p) {
+      *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      if (c < p) o[0] = __float2bfloat16_rn(v0);
+      if (c + 1 < p) o[1] = __float2bfloat16_rn(v1);
+    }
+  }
+}
+
+template <int BYTES>
+int launch_bytes(const bf16* X, const bf16* Z, bf16* out, int n, int p, int d,
+                 int kind, double two_h2, double scale, double offset,
+                 int degree, cudaStream_t stream) {
+  const int64_t row_tiles = (n + BM - 1) / BM;
+  const int64_t col_tiles = (p + BN - 1) / BN;
+  if (row_tiles * col_tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  auto k = kernel<BYTES>;
+  cudaError_t set =
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (set != cudaSuccess) return (int)set;
+  const bool pairs =
+      p % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  k<<<(unsigned)(row_tiles * col_tiles), THREADS, SMEM, stream>>>(
+      X, Z, out, n, p, d, kind, (float)two_h2, (float)scale, (float)offset,
+      degree, (int)col_tiles, pairs);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hmma
 
 // The widest copy (16, 8 or 4 bytes, at least one element, at most MAX)
 // that divides a row of d values and both base addresses.
@@ -562,18 +805,50 @@ int launch_dmma(const void* X, const void* Z, void* out, int n, int p, int d,
   if (b == 8)
     return dmma::launch_bytes<T, 8>(x, z, o, n, p, d, kind, two_h2, scale,
                                     offset, degree, s);
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) <= 4) {
     if (b == 4)
       return dmma::launch_bytes<T, 4>(x, z, o, n, p, d, kind, two_h2, scale,
+                                      offset, degree, s);
+  }
+  if constexpr (sizeof(T) == 2) {
+    if (b == 2)
+      return dmma::launch_bytes<T, 2>(x, z, o, n, p, d, kind, two_h2, scale,
                                       offset, degree, s);
   }
   return (int)cudaErrorMisalignedAddress;
 }
 
+// bf16 rows of 90 values (180 bytes) take 4-byte copies, rows of odd length
+// 2-byte ones
+int launch_hmma(const void* X, const void* Z, void* out, int n, int p, int d,
+                int kind, double two_h2, double scale, double offset,
+                int degree, cudaStream_t s) {
+  const bf16* x = static_cast<const bf16*>(X);
+  const bf16* z = static_cast<const bf16*>(Z);
+  bf16* o = static_cast<bf16*>(out);
+  switch (copy_bytes<bf16>(X, Z, d, 16)) {
+    case 16:
+      return hmma::launch_bytes<16>(x, z, o, n, p, d, kind, two_h2, scale,
+                                    offset, degree, s);
+    case 8:
+      return hmma::launch_bytes<8>(x, z, o, n, p, d, kind, two_h2, scale,
+                                   offset, degree, s);
+    case 4:
+      return hmma::launch_bytes<4>(x, z, o, n, p, d, kind, two_h2, scale,
+                                   offset, degree, s);
+    case 2:
+      return hmma::launch_bytes<2>(x, z, o, n, p, d, kind, two_h2, scale,
+                                   offset, degree, s);
+    default:
+      return (int)cudaErrorMisalignedAddress;
+  }
+}
+
 }  // namespace
 
-// dtype / acc: 0 = float32, 1 = float64. Returns cudaGetLastError() after
-// the launch (0 on success); the kernel runs on `stream` of device `device`.
+// dtype: 0 = float32, 1 = float64, 2 = bf16; acc: 0 = float32, 1 =
+// float64. Returns cudaGetLastError() after the launch (0 on success); the
+// kernel runs on `stream` of device `device`.
 extern "C" int kernel_block_launch(const void* X, const void* Z, void* out,
                                    int n, int p, int d, int dtype, int acc,
                                    int kind, double two_h2, double scale,
@@ -595,6 +870,12 @@ extern "C" int kernel_block_launch(const void* X, const void* Z, void* out,
   if (acc == 1 && dtype == 1)
     return launch_dmma<double>(X, Z, out, n, p, d, kind, two_h2, scale,
                                offset, degree, s);
+  if (acc == 0 && dtype == 2)
+    return launch_hmma(X, Z, out, n, p, d, kind, two_h2, scale, offset,
+                       degree, s);
+  if (acc == 1 && dtype == 2)
+    return launch_dmma<bf16>(X, Z, out, n, p, d, kind, two_h2, scale,
+                             offset, degree, s);
   return (int)cudaErrorInvalidValue;
 }
 

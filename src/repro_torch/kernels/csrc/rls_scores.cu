@@ -37,11 +37,23 @@
 // larger p in this build. The fold multiplies by the unsplit float32
 // B[r, j].
 //
-// float64, and the two mixed builds (float32 data with float64 accumulation
-// and the reverse): SIMT fma on the CUDA cores (tile.cuh), one block of 256
-// threads per 128-row tile (64 in float64) against 128-column blocks of M
-// (64 in float64) over 16-deep k-slabs. Bound in float64: the same 2*n*p^2
-// at 67 TFLOP/s.
+// bf16 data with float32 accumulation (the reference's rule for bf16 B; M
+// stays float32, never rounded to bf16): the same body, B staged as bf16
+// (rows of 40 values, 80 bytes). A bf16 value is a TF32 value exactly, so
+// B's low part is zero and two products remain, B * M_hi + B * M_lo, each
+// exact in float32 but for M_lo's bits below TF32; the fold multiplies by
+// the upcast bf16 B[r, j] and the score is rounded to bf16 once. Bound at
+// the main path's shape: 2 * 2*n*p^2 = 7.8e12 operations at 495 TFLOP/s,
+// 15.7 ms, against 1.9 GB of B, 0.57 ms: operations. The scores come back
+// in bf16 (a relative step of 2^-8), far above the tensor cores' float32
+// accumulation error, so this build takes any p (chip_smoke.py phase
+// limits measures it at p = 2048, 4096 and 8192).
+//
+// float64, and the mixed builds (float32 data with float64 accumulation,
+// the reverse, and bf16 data with float64 accumulation): SIMT fma on the
+// CUDA cores (tile.cuh), one block of 256 threads per 128-row tile (64 in
+// float64) against 128-column blocks of M (64 in float64) over 16-deep
+// k-slabs. Bound in float64: the same 2*n*p^2 at 67 TFLOP/s.
 #include "tile.cuh"
 
 using namespace repro_tile;
@@ -92,7 +104,8 @@ rls_scores_kernel(const T* __restrict__ B, const Acc* __restrict__ M,
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int gj = j0 + tx + j * TX;
-        if (gj < p) part[i] = fma_(acc[i][j], Acc(B[r * p + gj]), part[i]);
+        if (gj < p)
+          part[i] = fma_(acc[i][j], widen<Acc>(B[r * p + gj]), part[i]);
       }
     }
   }
@@ -106,7 +119,7 @@ rls_scores_kernel(const T* __restrict__ B, const Acc* __restrict__ M,
     for (int off = TX / 2; off > 0; off >>= 1)
       v += __shfl_xor_sync(0xffffffffu, v, off);
     const int64_t r = row0 + ty * TM + i;
-    if (tx == 0 && r < n) out[r] = T(v);
+    if (tx == 0 && r < n) out[r] = narrow<T>(v);
   }
 }
 
@@ -131,11 +144,15 @@ constexpr int WARPS_M = 2, WARPS_N = 4;       // 8 warps of WM x WN
 constexpr int THREADS = 32 * WARPS_M * WARPS_N;
 constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
 constexpr int MT = WM / 16, NT8 = WN / 8;     // m16 and n8 tiles a warp
-constexpr int LDA = BK + 4;                   // 36: a-fragments conflict-free
+// rows of the staged B slab: 36 floats or 40 bf16 (144 or 80 bytes, 16-byte
+// aligned), so the a-fragments hit distinct banks
+template <typename T> constexpr int LDA = BK + (sizeof(T) == 2 ? 8 : 4);
 constexpr int LDB = BN + 8;                   // 264: b-fragments likewise
-constexpr int A_FLOATS = BM * LDA, B_FLOATS = BK * LDB;
-constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
-constexpr int SMEM = STAGES * STAGE_FLOATS * (int)sizeof(float);
+template <typename T>
+constexpr int A_BYTES = BM * LDA<T> * (int)sizeof(T);
+constexpr int B_BYTES = BK * LDB * (int)sizeof(float);
+template <typename T> constexpr int STAGE_BYTES = A_BYTES<T> + B_BYTES;
+template <typename T> constexpr int SMEM = STAGES * STAGE_BYTES<T>;
 
 // x = hi + lo exactly: hi is x with the 13 low mantissa bits cleared (a
 // TF32 value), lo = x - hi; the tensor cores read lo's top 19 bits. Two
@@ -157,41 +174,50 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 
 // Stage slab `it` (column block it / kt, k-slab it % kt) into `st`: rows
 // [row0, row0 + BM) x k [k0, k0 + BK) of B and rows k of M x columns
-// [j0, j0 + BN), zeros outside the matrices. VEC: 16-byte copies (p a
-// multiple of 4 and both operands 16-byte aligned), else 4-byte ones.
-template <bool VEC>
-__device__ __forceinline__ void load_slab(float* st,
-                                          const float* __restrict__ B,
+// [j0, j0 + BN), zeros outside the matrices. BBYTES and MBYTES: the copies
+// of B and of M, 16 bytes where p and the base addresses allow, else 4 (2
+// for bf16 rows of odd length).
+template <typename T, int BBYTES, int MBYTES>
+__device__ __forceinline__ void load_slab(unsigned char* st,
+                                          const T* __restrict__ B,
                                           const float* __restrict__ M,
                                           int64_t row0, int n, int p, int it,
                                           int kt) {
   const int j0 = (it / kt) * BN, k0 = (it % kt) * BK;
-  float* As = st;
-  float* Bs = st + A_FLOATS;
-  constexpr int W = VEC ? 4 : 1;
+  T* As = reinterpret_cast<T*>(st);
+  float* Bs = reinterpret_cast<float*>(st + A_BYTES<T>);
+  constexpr int WA = BBYTES / (int)sizeof(T), WM_ = MBYTES / 4;
 #pragma unroll
-  for (int e = threadIdx.x; e < BM * BK / W; e += THREADS) {
-    const int r = e / (BK / W), c = (e % (BK / W)) * W;
+  for (int e = threadIdx.x; e < BM * BK / WA; e += THREADS) {
+    const int r = e / (BK / WA), c = (e % (BK / WA)) * WA;
     const int64_t gr = row0 + r;
     const int gc = k0 + c;
     const bool ok = gr < n && gc < p;
-    cp_async<4 * W>(As + r * LDA + c, ok ? B + gr * p + gc : B, ok);
+    cp_async<BBYTES>(As + r * LDA<T> + c, ok ? B + gr * p + gc : B, ok);
   }
 #pragma unroll
-  for (int e = threadIdx.x; e < BK * BN / W; e += THREADS) {
-    const int k = e / (BN / W), j = (e % (BN / W)) * W;
+  for (int e = threadIdx.x; e < BK * BN / WM_; e += THREADS) {
+    const int k = e / (BN / WM_), j = (e % (BN / WM_)) * WM_;
     const int gk = k0 + k, gj = j0 + j;
     const bool ok = gk < p && gj < p;
-    cp_async<4 * W>(Bs + k * LDB + j, ok ? M + (int64_t)gk * p + gj : M,
+    cp_async<MBYTES>(Bs + k * LDB + j, ok ? M + (int64_t)gk * p + gj : M,
                      ok);
   }
 }
 
-template <bool VEC>
+// the TF32 operand of a staged B value: float32 is split (split() below);
+// a bf16 value is its own TF32 high part, exactly, with no low part
+__device__ __forceinline__ uint32_t tf32_of(bf16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x) << 16;
+}
+
+template <typename T, int BBYTES, int MBYTES>
 __global__ void __launch_bounds__(THREADS, 1)
-rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
-                  float* __restrict__ out, int n, int p) {
-  extern __shared__ __align__(16) float sm[];
+rls_scores_tf32x3(const T* __restrict__ B, const float* __restrict__ M,
+                  T* __restrict__ out, int n, int p) {
+  constexpr bool BF16 = std::is_same_v<T, bf16>;
+  constexpr int LD = LDA<T>;
+  extern __shared__ __align__(16) unsigned char sm[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
@@ -215,7 +241,8 @@ rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < slabs)
-      load_slab<VEC>(sm + s * STAGE_FLOATS, B, M, row0, n, p, s, kt);
+      load_slab<T, BBYTES, MBYTES>(sm + s * STAGE_BYTES<T>, B, M, row0, n, p,
+                                   s, kt);
     cp_async_commit();
   }
 
@@ -224,12 +251,14 @@ rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
     __syncthreads();                  // slab it visible; slot it-1 free
     const int next = it + STAGES - 1;
     if (next < slabs)
-      load_slab<VEC>(sm + (next % STAGES) * STAGE_FLOATS, B, M, row0, n, p,
-                     next, kt);
+      load_slab<T, BBYTES, MBYTES>(sm + (next % STAGES) * STAGE_BYTES<T>, B,
+                                   M, row0, n, p, next, kt);
     cp_async_commit();
 
-    const float* As = sm + (it % STAGES) * STAGE_FLOATS + wm * WM * LDA;
-    const float* Bs = sm + (it % STAGES) * STAGE_FLOATS + A_FLOATS + wn * WN;
+    const unsigned char* st = sm + (it % STAGES) * STAGE_BYTES<T>;
+    const T* As = reinterpret_cast<const T*>(st) + wm * WM * LD;
+    const float* Bs =
+        reinterpret_cast<const float*>(st + A_BYTES<T>) + wn * WN;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8) {
       uint32_t bh[NT8][2], bl[NT8][2];
@@ -241,17 +270,28 @@ rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
                 bl[ni][h]);
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
-        uint32_t ah[4], al[4];
-        const float* a = As + (mi * 16 + g) * LDA + kk + t;
-        split(a[0], ah[0], al[0]);
-        split(a[8 * LDA], ah[1], al[1]);
-        split(a[4], ah[2], al[2]);
-        split(a[8 * LDA + 4], ah[3], al[3]);
-        // small terms first; each pass over the 8 n-tiles is independent
+        const T* a = As + (mi * 16 + g) * LD + kk + t;
+        uint32_t ah[4];
+        if constexpr (BF16) {
+          // two products, small term first: b_hi a + b_lo a (a_lo = 0)
+          ah[0] = tf32_of(a[0]);
+          ah[1] = tf32_of(a[8 * LD]);
+          ah[2] = tf32_of(a[4]);
+          ah[3] = tf32_of(a[8 * LD + 4]);
 #pragma unroll
-        for (int ni = 0; ni < NT8; ++ni) mma(acc[mi][ni], al, bh[ni]);
+          for (int ni = 0; ni < NT8; ++ni) mma(acc[mi][ni], ah, bl[ni]);
+        } else {
+          uint32_t al[4];
+          split(a[0], ah[0], al[0]);
+          split(a[8 * LD], ah[1], al[1]);
+          split(a[4], ah[2], al[2]);
+          split(a[8 * LD + 4], ah[3], al[3]);
+          // small terms first; each pass over the 8 n-tiles is independent
 #pragma unroll
-        for (int ni = 0; ni < NT8; ++ni) mma(acc[mi][ni], ah, bl[ni]);
+          for (int ni = 0; ni < NT8; ++ni) mma(acc[mi][ni], al, bh[ni]);
+#pragma unroll
+          for (int ni = 0; ni < NT8; ++ni) mma(acc[mi][ni], ah, bl[ni]);
+        }
 #pragma unroll
         for (int ni = 0; ni < NT8; ++ni) mma(acc[mi][ni], ah, bh[ni]);
       }
@@ -273,8 +313,8 @@ rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
               const int j = jw + ni * 8 + 2 * t + e;
               if (r < n && j < p)
                 part[mi][h] =
-                    fmaf(acc[mi][ni][2 * h + e], __ldg(B + r * p + j),
-                         part[mi][h]);
+                    fmaf(acc[mi][ni][2 * h + e],
+                         widen<float>(__ldg(B + r * p + j)), part[mi][h]);
               acc[mi][ni][2 * h + e] = 0.f;
             }
         }
@@ -284,7 +324,7 @@ rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
   __syncthreads();                    // the stages are free for the sums
 
   // a row's partials: 4 threads of a quad, then the 4 warps across j
-  float* red = sm;                    // [WARPS_N][BM]
+  float* red = reinterpret_cast<float*>(sm);  // [WARPS_N][BM]
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -299,31 +339,50 @@ rls_scores_tf32x3(const float* __restrict__ B, const float* __restrict__ M,
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS_N; ++w) v += red[w * BM + threadIdx.x];
-    out[row0 + threadIdx.x] = v;
+    out[row0 + threadIdx.x] = narrow<T>(v);
   }
 }
 
-int launch(const float* B, const float* M, float* out, int n, int p,
-           cudaStream_t stream) {
-  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(M) % 16 == 0;
-  auto kernel = vec ? rls_scores_tf32x3<true> : rls_scores_tf32x3<false>;
+template <typename T, int BBYTES, int MBYTES>
+int launch_copies(const T* B, const float* M, T* out, int n, int p,
+                  cudaStream_t stream) {
+  auto kernel = rls_scores_tf32x3<T, BBYTES, MBYTES>;
   cudaError_t set = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<T>);
   if (set != cudaSuccess) return (int)set;
   const int64_t row_tiles = (n + BM - 1) / BM;
-  kernel<<<(unsigned)row_tiles, THREADS, SMEM, stream>>>(B, M, out, n, p);
+  kernel<<<(unsigned)row_tiles, THREADS, SMEM<T>, stream>>>(B, M, out, n, p);
   return (int)cudaGetLastError();
+}
+
+// 16-byte copies where p is a multiple of 16 bytes' values and both
+// operands are 16-byte aligned, else 4-byte ones (2-byte for bf16 rows of
+// odd length)
+template <typename T>
+int launch(const T* B, const float* M, T* out, int n, int p,
+           cudaStream_t stream) {
+  constexpr int PER16 = 16 / (int)sizeof(T);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(B);
+  const uintptr_t m = reinterpret_cast<uintptr_t>(M);
+  if (p % PER16 == 0 && p % 4 == 0 && b % 16 == 0 && m % 16 == 0)
+    return launch_copies<T, 16, 16>(B, M, out, n, p, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (p % 2 == 0 && b % 4 == 0)
+      return launch_copies<T, 4, 4>(B, M, out, n, p, stream);
+    return launch_copies<T, 2, 4>(B, M, out, n, p, stream);
+  } else {
+    return launch_copies<T, 4, 4>(B, M, out, n, p, stream);
+  }
 }
 
 }  // namespace tf32x3
 
 }  // namespace
 
-// dtype (of B and the scores) / acc (of M and the arithmetic):
-// 0 = float32, 1 = float64; (float32, float32) runs on the tensor cores
-// (3xTF32), the others in SIMT fma. Returns cudaGetLastError() after the
-// launch.
+// dtype (of B and the scores): 0 = float32, 1 = float64, 2 = bf16; acc (of
+// M and the arithmetic): 0 = float32, 1 = float64. (float32, float32) runs
+// on the tensor cores as 3xTF32 and (bf16, float32) as 2xTF32, the others
+// in SIMT fma. Returns cudaGetLastError() after the launch.
 extern "C" int rls_scores_launch(const void* B, const void* M, void* out,
                                  int n, int p, int dtype, int acc, int device,
                                  void* stream) {
@@ -339,6 +398,11 @@ extern "C" int rls_scores_launch(const void* B, const void* M, void* out,
   if (dtype == 1 && acc == 0) return launch<double, float>(B, M, out, n, p, s);
   if (dtype == 1 && acc == 1)
     return launch<double, double>(B, M, out, n, p, s);
+  if (dtype == 2 && acc == 0)
+    return tf32x3::launch(static_cast<const bf16*>(B),
+                          static_cast<const float*>(M),
+                          static_cast<bf16*>(out), n, p, s);
+  if (dtype == 2 && acc == 1) return launch<bf16, double>(B, M, out, n, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

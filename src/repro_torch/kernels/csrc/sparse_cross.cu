@@ -53,10 +53,24 @@
 // per output element. Empty rows give k(0, z); slots at or past
 // indptr[n_rows] (padding) are never read. Float32 arithmetic is IEEE fma,
 // never TF32.
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// bf16 values (the reference's bf16 CSR chunks: values and landmarks in
+// bf16, accumulated in the caller's acc_dtype, float32 by the bf16 rule):
+// the same kernel on a bf16 values array. The prepared landmarks are in the
+// accumulation type already, and bf16 values widen exactly, so the sums
+// are the float32 build's; |x|^2 is summed from the upcast values. Where
+// the block dtype is narrower than the accumulation, |x|^2 and the cross
+// product are rounded to the block dtype before the epilogue, as the
+// reference's sparse_row_sqnorms and sparse_kernel_block round them, and
+// the epilogue's value is rounded again (to nearest even) as it is stored.
+#include "tile.cuh"
 
 namespace {
+
+using repro_tile::bf16;
+using repro_tile::narrow;
+using repro_tile::widen;
+using repro_tile::zero_of;
 
 constexpr int LANES = 32;
 constexpr int WARPS = 32;              // rows in flight per block
@@ -116,7 +130,7 @@ row_sqnorm_kernel(const T* __restrict__ Z, int p, int d,
   const T* z = Z + row * d;
   Acc s = Acc(0);
   for (int k = lane; k < d; k += LANES) {
-    const Acc v = Acc(z[k]);
+    const Acc v = widen<Acc>(z[k]);
     s = fma_(v, v, s);
   }
   s = warp_sum(s);
@@ -164,7 +178,7 @@ sparse_cross_kernel(const T* __restrict__ data,
   // while this one is applied, across the rows' ends too
   int64_t row = first + warp;
   int lo = 0, hi = 0, base = 0, pcol = 0;
-  T pval = T(0);
+  T pval = zero_of<T>();
   if (row < last) {
     lo = indptr[row];
     hi = indptr[row + 1];
@@ -192,7 +206,7 @@ sparse_cross_kernel(const T* __restrict__ data,
     }
     const bool valid = base + lane < hi;
     const int col = pcol;
-    const Acc v = valid ? Acc(pval) : Acc(0);
+    const Acc v = valid ? widen<Acc>(pval) : Acc(0);
     // the next batch: the rest of this row, or the warp's next row
     int64_t nrow = row;
     int nlo = lo, nhi = hi, nbase = base + LANES;
@@ -287,7 +301,11 @@ sparse_cross_kernel(const T* __restrict__ data,
       }
     }
     if (row_done) {
-      const Acc sqr = warp_sum(sq);
+      // |x|^2 and the cross product rounded to the block dtype before the
+      // epilogue, as the reference's sparse_row_sqnorms and
+      // sparse_kernel_block round them
+      Acc sqr = warp_sum(sq);
+      if constexpr (!std::is_same_v<T, Acc>) sqr = widen<Acc>(narrow<T>(sqr));
       __syncwarp();
       T* orow = out + row * p;
 #pragma unroll
@@ -298,6 +316,9 @@ sparse_cross_kernel(const T* __restrict__ data,
           const int c = c0 + lc;
           if (c >= p) continue;
           Acc val = acc[r][e] + other[lc];
+          if constexpr (!std::is_same_v<T, Acc>) {
+            if (kind != 1) val = widen<Acc>(narrow<T>(val));
+          }
           if (kind == 0) {
             Acc d2 = sqr + zz[c] - Acc(2) * val;
             d2 = d2 > Acc(0) ? d2 : Acc(0);
@@ -308,7 +329,7 @@ sparse_cross_kernel(const T* __restrict__ data,
             for (int q = 0; q < degree; ++q) pw *= bb;
             val = pw;
           }
-          orow[c] = T(val);
+          orow[c] = narrow<T>(val);
         }
       }
       __syncwarp();  // this row's reads of `other` before the next row's
@@ -368,7 +389,8 @@ int sqnorms(const void* Z, int p, int d, void* zz, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype / acc: 0 = float32, 1 = float64. The landmark arrays are those of
+// dtype: 0 = float32, 1 = float64, 2 = bf16; acc: 0 = float32, 1 =
+// float64. The landmark arrays are those of
 // one prepared Z (sparse_block.SparseLandmarks); ld is p padded to whole slabs.
 // Returns cudaGetLastError() after the launch (0 on success); the kernel
 // runs on `stream` of device `device`.
@@ -389,6 +411,8 @@ extern "C" int sparse_cross_launch(
   if (dtype == 0 && acc == 1) return launch<float, double>(K3_ARGS);
   if (dtype == 1 && acc == 0) return launch<double, float>(K3_ARGS);
   if (dtype == 1 && acc == 1) return launch<double, double>(K3_ARGS);
+  if (dtype == 2 && acc == 0) return launch<bf16, float>(K3_ARGS);
+  if (dtype == 2 && acc == 1) return launch<bf16, double>(K3_ARGS);
 #undef K3_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -405,6 +429,8 @@ extern "C" int sparse_sqnorms_launch(const void* Z, int p, int d, int dtype,
   if (dtype == 0 && acc == 1) return sqnorms<float, double>(Z, p, d, zz, s);
   if (dtype == 1 && acc == 0) return sqnorms<double, float>(Z, p, d, zz, s);
   if (dtype == 1 && acc == 1) return sqnorms<double, double>(Z, p, d, zz, s);
+  if (dtype == 2 && acc == 0) return sqnorms<bf16, float>(Z, p, d, zz, s);
+  if (dtype == 2 && acc == 1) return sqnorms<bf16, double>(Z, p, d, zz, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,11 @@
-// Shared pieces of the port's two GEMM-shaped kernels (kernel_block.cu,
-// rls_scores.cu).
+// Shared pieces of the port's KRR kernels (kernel_block.cu, rls_scores.cu,
+// sparse_cross.cu).
+//
+// widen / narrow / is_zero: the storage types (float, double, bf16) against
+// the accumulation types (float, double). A bf16 value widens exactly; a
+// result narrows to bf16 round-to-nearest-even, as the reference's .astype
+// and torch's .to do: a float64 result through float32 first, as they
+// round it.
 //
 // cp_async / cp_async_commit / cp_async_wait: asynchronous copies from
 // device memory into shared memory (Ampere's cp.async, kept on Hopper),
@@ -19,31 +25,81 @@
 // cores.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace repro_tile {
+
+using bf16 = __nv_bfloat16;
+
+template <typename Acc>
+__device__ __forceinline__ Acc widen(float x) { return Acc(x); }
+template <typename Acc>
+__device__ __forceinline__ Acc widen(double x) { return Acc(x); }
+template <typename Acc>
+__device__ __forceinline__ Acc widen(bf16 x) {
+  return Acc(__bfloat162float(x));
+}
+
+template <typename T, typename Acc>
+__device__ __forceinline__ T narrow(Acc v) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if constexpr (std::is_same_v<Acc, double>) {
+      return __float2bfloat16_rn(__double2float_rn(v));
+    } else {
+      return __float2bfloat16_rn(v);
+    }
+  } else {
+    return T(v);
+  }
+}
+
+__device__ __forceinline__ bool is_zero(float x) { return x == 0.f; }
+__device__ __forceinline__ bool is_zero(double x) { return x == 0.0; }
+__device__ __forceinline__ bool is_zero(bf16 x) {
+  return (__bfloat16_as_ushort(x) & 0x7fffu) == 0;
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  if constexpr (std::is_same_v<T, bf16>) {
+    return __ushort_as_bfloat16((unsigned short)0);
+  } else {
+    return T(0);
+  }
+}
 
 constexpr int TY = 16, TX = 16;
 constexpr int NT = TY * TX;   // threads per block
 constexpr int PAD = 4;        // keeps each staged row 16-byte aligned
 
 // Copy BYTES (4, 8 or 16) from src to the shared-memory address dst; zeros
-// when !valid (src is then never read, but must be a valid address).
+// when !valid (src is then never read, but must be a valid address). Two
+// bytes (bf16 rows of odd length, only 2-byte aligned) have no cp.async:
+// that copy is a plain load and store, visible after the same barrier.
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool valid) {
-  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async size");
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d),
-                 "l"(src), "n"(BYTES), "r"(n)
-                 : "memory");
+  static_assert(BYTES == 2 || BYTES == 4 || BYTES == 8 || BYTES == 16,
+                "cp.async size");
+  if constexpr (BYTES == 2) {
+    *static_cast<unsigned short*>(dst) =
+        valid ? *static_cast<const unsigned short*>(src) : 0;
+  } else {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    const int n = valid ? BYTES : 0;
+    if constexpr (BYTES == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                   "l"(src), "r"(n)
+                   : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d),
+                   "l"(src), "n"(BYTES), "r"(n)
+                   : "memory");
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -83,7 +139,8 @@ __device__ __forceinline__ void stage_rows(Acc (*S)[ROWS + PAD],
     const int r = e / BK, c = e % BK;
     const int64_t gr = row0 + r;
     const int gc = k0 + c;
-    S[c][r] = (gr < n_rows && gc < k_len) ? Acc(A[gr * ld + gc]) : Acc(0);
+    S[c][r] = (gr < n_rows && gc < k_len) ? widen<Acc>(A[gr * ld + gc])
+                                           : Acc(0);
   }
 }
 

@@ -7,13 +7,17 @@ norms and the epilogue fused into the tiled X·Zᵀ product (see the note at
 the top of the CUDA source for the tiling and its bound).
 
 Accumulation follows the reference's rule: float64 inputs accumulate in
-float64, float32 inputs in IEEE float32 (never TF32); ``acc_dtype``
-overrides it. float32 accumulation runs IEEE fma on the CUDA cores;
-float64 accumulation (float64 data, or float32 data with
-``acc_dtype=float64`` as the sparse path's W = k(Z, Z)) runs on the FP64
-tensor cores (``mma.sync`` m16n8k8, IEEE float64 fused multiply-adds),
-skipping the products of blocks whose values are all zero. The block comes
-back in the input dtype. bf16 blocks are a ROADMAP item and raise here.
+float64, float32 and bf16 inputs in float32 (IEEE for float32 data, never
+TF32); ``acc_dtype`` overrides it. float32 data with float32 accumulation
+runs IEEE fma on the CUDA cores; bf16 data with float32 accumulation runs
+on the bf16 tensor cores (``mma.sync`` m16n8k16, float32 accumulators:
+bf16 products are exact in float32); float64 accumulation (float64 data,
+or float32 or bf16 data with ``acc_dtype=float64``, as the sparse path's
+W = k(Z, Z)) runs on the FP64 tensor cores (``mma.sync`` m16n8k8, IEEE
+float64 fused multiply-adds). The tensor-core builds skip the products of
+blocks whose values are all zero. The block comes back in the input dtype,
+a bf16 block rounded once, to nearest even. Other dtypes (float16
+included) raise before anything is built or launched.
 
 This wrapper takes CUDA tensors only; ``repro_torch.kernels.ops`` sends
 CPU tensors to the plain version in ``ref``.
@@ -29,7 +33,9 @@ from torch import Tensor
 from ..core.precision import to_dtype
 
 KINDS = {"rbf": 0, "linear": 1, "poly": 2}
-DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+# the operand dtypes the kernels take, and the accumulation dtypes
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+ACC_CODES = {torch.float32: 0, torch.float64: 1}
 _INT32_MAX = 2**31 - 1
 
 
@@ -47,13 +53,16 @@ def check_cuda(name: str, *tensors: Tensor) -> None:
 
 
 def check_dtypes(name: str, acc: torch.dtype, *tensors: Tensor) -> None:
-    """Float32/float64 operands and accumulator; bf16 is not ported."""
-    for t in (*tensors, acc):
-        dt = t if isinstance(t, torch.dtype) else t.dtype
-        if dt not in DTYPE_CODES:
+    """float32, float64 or bf16 operands and a float32 or float64
+    accumulator; anything else raises before a build or a launch."""
+    for t in tensors:
+        if t.dtype not in DTYPE_CODES:
             raise TypeError(
-                f"{name} takes float32 or float64 operands, got {dt}; the "
-                "bf16 block path is ROADMAP work (bf16 K1/K2 kernels)")
+                f"{name} takes float32, float64 or bfloat16 operands, got "
+                f"{t.dtype}")
+    if acc not in ACC_CODES:
+        raise TypeError(f"{name} accumulates in float32 or float64, got "
+                        f"{acc}")
 
 
 @functools.cache
@@ -78,9 +87,10 @@ def kernel_block(X: Tensor, Z: Tensor, *, kind: str = "rbf",
                  offset: float = 1.0, acc_dtype=None) -> Tensor:
     """C = k(X, Z) ∈ R^{n×p} in one launch of K1 (CUDA tensors only).
 
-    X (n, d) and Z (p, d) are contiguous float32/float64 tensors of one
-    dtype on one CUDA device; ``acc_dtype`` overrides the accumulation
-    rule. Launches on the current stream and does not synchronise.
+    X (n, d) and Z (p, d) are contiguous float32, float64 or bf16 tensors
+    of one dtype on one CUDA device; ``acc_dtype`` (float32 or float64)
+    overrides the accumulation rule. Launches on the current stream and
+    does not synchronise.
     """
     check_cuda("kernel_block", X, Z)
     acc = default_acc(X.dtype) if acc_dtype is None else to_dtype(acc_dtype)
@@ -106,7 +116,7 @@ def kernel_block(X: Tensor, Z: Tensor, *, kind: str = "rbf",
         return out
     fn, err = _entry()
     code = fn(X.data_ptr(), Z.data_ptr(), out.data_ptr(), n, p, d,
-              DTYPE_CODES[X.dtype], DTYPE_CODES[acc], KINDS[kind],
+              DTYPE_CODES[X.dtype], ACC_CODES[acc], KINDS[kind],
               2.0 * float(bandwidth) ** 2, float(scale), float(offset),
               int(degree), X.device.index,
               torch.cuda.current_stream(X.device).cuda_stream)

@@ -15,8 +15,13 @@ within 1.31e-5 (relative) of IEEE float32 at p = 2048, 15× inside the
 float32 rtol 2e-4, but 2.5e-5 at p = 4096 and 5.0e-5 at p = 8192, growing
 with p through the tensor cores' float32 accumulation, so a larger p is
 refused and names the float64-accumulating build. float64 and the mixed
-builds run IEEE fma on the CUDA cores. bf16 is a ROADMAP item and raises
-here.
+builds run IEEE fma on the CUDA cores. bf16 B with float32 accumulation
+runs the same tensor-core body with two products (a bf16 value is a TF32
+value exactly, so B has no low part): B·M_hi + B·M_lo, M kept in float32;
+its scores come back in bf16, whose rounding (a relative step of 2⁻⁸)
+is far above the tensor cores' accumulation error, so p is not limited in
+that build (``chip_smoke.py`` phase ``limits`` measures it at p = 2048,
+4096 and 8192). bf16 B with float64 accumulation runs SIMT fma.
 
 This wrapper takes CUDA tensors only; ``repro_torch.kernels.ops`` sends
 CPU tensors to the plain version in ``ref``.
@@ -30,7 +35,8 @@ import torch
 from torch import Tensor
 
 from ..core.precision import to_dtype
-from .rbf_block import DTYPE_CODES, check_cuda, check_dtypes, default_acc
+from .rbf_block import (ACC_CODES, DTYPE_CODES, check_cuda, check_dtypes,
+                        default_acc)
 
 _INT32_MAX = 2**31 - 1
 # the largest p at which the 3xTF32 build stays 10x inside the float32 rtol
@@ -57,9 +63,9 @@ def _entry():
 def rls_scores_fused(B: Tensor, M: Tensor, *, acc_dtype=None) -> Tensor:
     """l̃ = rowwise B M Bᵀ ∈ R^n in one launch of K2 (CUDA tensors only).
 
-    B (n, p) contiguous float32/float64, M (p, p) on the same device (cast
-    to the accumulation dtype here — a p×p copy). Launches on the current
-    stream and does not synchronise."""
+    B (n, p) contiguous float32, float64 or bf16, M (p, p) on the same
+    device (cast to the accumulation dtype here — a p×p copy). Launches on
+    the current stream and does not synchronise."""
     check_cuda("rls_scores", B, M)
     acc = default_acc(B.dtype) if acc_dtype is None else to_dtype(acc_dtype)
     check_dtypes("rls_scores", acc, B, M)
@@ -84,7 +90,7 @@ def rls_scores_fused(B: Tensor, M: Tensor, *, acc_dtype=None) -> Tensor:
         return out
     fn, err = _entry()
     code = fn(B.data_ptr(), M.data_ptr(), out.data_ptr(), n, p,
-              DTYPE_CODES[B.dtype], DTYPE_CODES[acc], B.device.index,
+              DTYPE_CODES[B.dtype], ACC_CODES[acc], B.device.index,
               torch.cuda.current_stream(B.device).cuda_stream)
     if code:
         raise RuntimeError(f"rls_scores launch failed: "

@@ -20,8 +20,12 @@ the row id of every stored slot (``sparse_row_ids``) and the row norms
 (``sparse_row_sqnorms``).
 
 Accumulation follows the reference: the result dtype
-``promote(data, Z)`` unless ``acc_dtype`` overrides it. bf16 raises on the
-card (ROADMAP item 14). This wrapper takes CUDA tensors only;
+``promote(data, Z)`` unless ``acc_dtype`` overrides it (float32 or float64
+on the card; bf16 values accumulate in float32 by the precision policy's
+bf16 rule). bf16 values take the same kernel on a bf16 values array. As
+in the reference's ``sparse_kernel_block``, ‖x‖² and the cross product are
+rounded to the block dtype before the epilogue. This wrapper takes CUDA
+tensors only;
 ``repro_torch.kernels.ops.sparse_block`` sends CPU tensors to the plain
 version.
 """
@@ -35,7 +39,8 @@ import torch
 from torch import Tensor
 
 from ..core.precision import to_dtype
-from .rbf_block import DTYPE_CODES, KINDS, check_cuda, check_dtypes
+from .rbf_block import (ACC_CODES, DTYPE_CODES, KINDS, check_cuda,
+                        check_dtypes)
 
 # floor on the plain contraction's nnz tile: below it the loop's step count
 # dominates; the (tile, p) gather it implies is a constant O(MIN_TILE·p)
@@ -154,6 +159,8 @@ def prepare_landmarks(Z: Tensor, acc_dtype=None) -> SparseLandmarks:
     if Z.ndim != 2:
         raise ValueError(f"landmarks must be (p, d), got {tuple(Z.shape)}")
     acc = Z.dtype if acc_dtype is None else to_dtype(acc_dtype)
+    if Z.is_cuda:
+        check_dtypes("sparse_cross", acc, Z)
     Z = Z.contiguous()
     p, d = Z.shape
     dev = Z.device
@@ -186,7 +193,7 @@ def prepare_landmarks(Z: Tensor, acc_dtype=None) -> SparseLandmarks:
         zz = torch.empty(p, dtype=acc, device=dev)
         _, norms, err = _entry()
         code = norms(Z.data_ptr(), p, d, DTYPE_CODES[Z.dtype],
-                     DTYPE_CODES[acc], zz.data_ptr(), dev.index,
+                     ACC_CODES[acc], zz.data_ptr(), dev.index,
                      torch.cuda.current_stream(dev).cuda_stream)
         if code:
             raise RuntimeError(f"sparse_cross norms launch failed: "
@@ -204,8 +211,8 @@ def sparse_cross(data: Tensor, indices: Tensor, indptr: Tensor, Z: Tensor, *,
                  prepared: SparseLandmarks | None = None) -> Tensor:
     """k(X_csr, Z) ∈ R^{n_rows×p} in one launch of K3 (CUDA tensors only).
 
-    ``data`` (nnz,) and Z (p, d) are contiguous float32/float64 tensors of
-    one dtype, ``indices`` (nnz,) and ``indptr`` (n_rows + 1,) contiguous
+    ``data`` (nnz,) and Z (p, d) are contiguous float32, float64 or bf16
+    tensors of one dtype, ``indices`` (nnz,) and ``indptr`` (n_rows + 1,) contiguous
     int32, all on one CUDA device; column ids must lie in [0, d)
     (``CsrMatrix.validate``). Slots at or past ``indptr[-1]`` are never
     read. ``acc_dtype`` overrides the accumulation (default: the data
@@ -261,7 +268,7 @@ def sparse_cross(data: Tensor, indices: Tensor, indptr: Tensor, Z: Tensor, *,
               L.hot_slot.data_ptr(), L.hot.data_ptr(), L.hot.shape[0],
               L.colptr.data_ptr(), L.ent_j.data_ptr(), L.ent_z.data_ptr(),
               L.zz.data_ptr(), out.data_ptr(), n_rows, p, L.ld,
-              DTYPE_CODES[data.dtype], DTYPE_CODES[acc], KINDS[kind],
+              DTYPE_CODES[data.dtype], ACC_CODES[acc], KINDS[kind],
               2.0 * float(bandwidth) ** 2, float(scale), float(offset),
               int(degree), data.device.index,
               torch.cuda.current_stream(data.device).cuda_stream)

@@ -7,7 +7,8 @@ has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda*.py
 
 (K1 is in tests/test_torch_cuda_blocks.py, K3 in
-tests/test_torch_cuda_sparse.py, K4 in tests/test_torch_cuda_attention.py.)
+tests/test_torch_cuda_sparse.py, K4 in tests/test_torch_cuda_attention.py,
+the bf16 instances of K1-K3 in tests/test_torch_cuda_bf16.py.)
 Tolerances (tests/_torch_common.py): 1e-10 at float64 and rtol 2e-4 on
 float32 scores (K2's float32 build is 3xTF32 on the tensor cores, within
 about 1.4e-5 of IEEE float32 at p = 2048 on an H100; it refuses p > 2048,

@@ -78,6 +78,18 @@ def test_kernel_block_on_sparse_rows_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 def test_kernel_block_refuses_bf16_on_the_card(cuda):
-    X = t(np.zeros((4, 3)), "cuda").bfloat16()
-    with pytest.raises(TypeError, match="bf16"):
-        rbf_block.kernel_block(X, X)
+    """Since K1's bf16 instance exists the card takes bf16 (its blocks are
+    held to the plain version in tests/test_torch_cuda_bf16.py): a bf16
+    block comes back in bf16, while float16 and a bf16 accumulator are
+    refused before any build or launch."""
+    X = t(np.zeros((4, 3)), "cuda")
+    before = rbf_block.kernel_block.launches
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
+        rbf_block.kernel_block(X.half(), X.half())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        rbf_block.kernel_block(X.bfloat16(), X.bfloat16(),
+                               acc_dtype="bfloat16")
+    assert rbf_block.kernel_block.launches == before
+    got = rbf_block.kernel_block(X.bfloat16(), X.bfloat16())
+    assert got.dtype == torch.bfloat16 and bool(torch.all(got == 1.0))
+    assert rbf_block.kernel_block.launches == before + 1

@@ -92,14 +92,22 @@ def test_sparse_cross_mixed_accumulation_matches_plain(cuda, dtype, acc):
 
 @pytest.mark.cuda
 def test_sparse_cross_refuses_bf16_and_int64_structure(cuda):
-    """bf16 values and int64 structure are refused, and so are landmarks
-    prepared for another accumulation, from another Z of the same shape,
-    or from this Z before it changed."""
+    """bf16 values are taken since K3's bf16 instance exists (its blocks are
+    held to the plain version in tests/test_torch_cuda_bf16.py), but not
+    with a bf16 accumulator, nor float16 values; int64 structure is
+    refused, and so are landmarks prepared for another accumulation, from
+    another Z of the same shape, or from this Z before it changed."""
     X = _csr(16, 9, "float32").cast(device="cuda")
     Z = t(np.zeros((4, 9), np.float32), "cuda")
-    with pytest.raises(TypeError, match="bf16"):
+    with pytest.raises(TypeError, match="float32 or float64"):
         sparse_block.sparse_cross(X.data.bfloat16(), X.indices, X.indptr,
                                   Z.bfloat16())
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
+        sparse_block.sparse_cross(X.data.half(), X.indices, X.indptr,
+                                  Z.half(), acc_dtype="float32")
+    got = sparse_block.sparse_cross(X.data.bfloat16(), X.indices, X.indptr,
+                                    Z.bfloat16(), acc_dtype="float32")
+    assert got.dtype == torch.bfloat16 and bool(torch.all(got == 0))
     with pytest.raises(TypeError, match="int32"):
         sparse_block.sparse_cross(X.data, X.indices.long(), X.indptr, Z)
     other = sparse_block.prepare_landmarks(Z, torch.float64)

@@ -5,9 +5,10 @@ The port never imports JAX or the JAX package. The import check runs in a
 subprocess, because tests/conftest.py has already imported JAX into this
 one; the source scan covers every module of ``src/repro_torch`` and
 ``chip_smoke.py``, including imports that only run inside functions.
-On the CPU the kernel wrappers never launch a kernel (K4 included), a bf16
-request for the card raises for K1-K3, and a device without a kernel
-route raises.
+On the CPU the kernel wrappers never launch a kernel (K4 included); K1-K3
+refuse a float16 request for the card before anything is built, while a
+bf16 one passes their dtype checks; and a device without a kernel route
+raises.
 """
 import ast
 import os
@@ -103,24 +104,46 @@ def test_cpu_tensors_never_launch_a_kernel():
                                    "flash_attention": 0}
 
 
+class _Built(Exception):
+    """Raised by a stand-in for a wrapper's library: the call got past every
+    check and asked for its kernel."""
+
+
 def test_bf16_card_request_raises(monkeypatch):
-    # pretend the operands passed the device check: the dtype check is what
-    # must refuse bf16 before anything is built or launched
-    monkeypatch.setattr(rbf_block, "check_cuda", lambda *a: None)
-    monkeypatch.setattr(rls_scores, "check_cuda", lambda *a: None)
-    monkeypatch.setattr(sparse_block, "check_cuda", lambda *a: None)
+    """K1-K3 take bf16 since their bf16 instances were ported: a bf16
+    request passes the dtype checks and reaches the build, while float16
+    (no instance) and a bf16 accumulator are refused before anything is
+    built or launched, naming the dtypes that are supported."""
+    # pretend the operands passed the device check, and stand in for the
+    # libraries, so that reaching one is visible and nothing is compiled
+    for mod in (rbf_block, rls_scores, sparse_block):
+        monkeypatch.setattr(mod, "check_cuda", lambda *a: None)
+
+        def built():
+            raise _Built
+        monkeypatch.setattr(mod, "_entry", built)
     ops.reset_launch_counts()
-    X = torch.zeros(4, 3, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="bf16"):
-        rbf_block.kernel_block(X, X)
-    with pytest.raises(TypeError, match="bf16"):
-        rls_scores.rls_scores_fused(torch.zeros(4, 3, dtype=torch.bfloat16),
-                                    torch.zeros(3, 3))
-    with pytest.raises(TypeError, match="bf16"):
-        sparse_block.sparse_cross(
-            torch.zeros(4, dtype=torch.bfloat16),
-            torch.zeros(4, dtype=torch.int32),
-            torch.tensor([0, 4], dtype=torch.int32), X)
+    idx = torch.zeros(4, dtype=torch.int32)
+    ptr = torch.tensor([0, 4], dtype=torch.int32)
+
+    def calls(dt, acc=None):
+        X = torch.zeros(4, 3, dtype=dt)
+        return [lambda: rbf_block.kernel_block(X, X, acc_dtype=acc),
+                lambda: rls_scores.rls_scores_fused(X, torch.zeros(3, 3),
+                                                    acc_dtype=acc),
+                lambda: sparse_block.sparse_cross(
+                    torch.zeros(4, dtype=dt), idx, ptr, X,
+                    acc_dtype=acc or torch.float32)]
+
+    for call in calls(torch.bfloat16):
+        with pytest.raises(_Built):
+            call()
+    for call in calls(torch.float16):
+        with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
+            call()
+    for call in calls(torch.bfloat16, acc=torch.bfloat16):
+        with pytest.raises(TypeError, match="float32 or float64"):
+            call()
     assert ops.launch_counts() == {"kernel_block": 0, "rls_scores": 0,
                                    "sparse_cross": 0,
                                    "flash_attention": 0}

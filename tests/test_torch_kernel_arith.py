@@ -2,6 +2,14 @@
 CPU and held against the JAX package (the kernels themselves are checked on
 the card, in tests/test_torch_cuda*.py).
 
+K2 ``rls_scores``' bf16 build runs B·M on the tensor cores as two TF32
+products: a bf16 value is a TF32 value exactly, so B has no low part, and
+M is split into M_hi (its 13 low mantissa bits cleared) and the TF32 value
+of M − M_hi (the tensor cores read a register's top 19 bits). Every such
+product is exact in float32; ``k2_bf16_emulation`` repeats them, summed in
+float64, where the card sums in float32 (that error is measured on the card,
+``chip_smoke.py`` phase ``limits``).
+
 K3 ``sparse_cross`` splits the landmarks' feature columns (``prepare_landmarks``):
 a hot column's values add v·(its dense Zᵀ row) into one accumulator, every
 other value scatters v·z over the non-zeros of Z in its column into a
@@ -21,8 +29,9 @@ import torch
 from _torch_common import F64_TOL, close
 
 from repro.kernels import sparse_block as jsb
+from repro.kernels.rls_scores import rls_scores_fused as jrls_scores
 from repro_torch.data import CsrMatrix
-from repro_torch.kernels import ref, sparse_block
+from repro_torch.kernels import ops, ref, sparse_block
 from repro_torch.kernels.sparse_block import SLAB, prepare_landmarks
 
 # two slabs of landmarks, the second ragged; D within the float64 table's
@@ -111,3 +120,49 @@ def test_k3_split_arithmetic_matches_reference(dtype, split, monkeypatch):
     close(got, want, **TOL[dtype])
     if split != "some_hot":
         assert torch.equal(got, ref.sparse_cross_ref(d, i, ptr, z))
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 value the tensor cores read from a float32 register: its 13
+    low mantissa bits cleared."""
+    return (x.view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def k2_bf16_emulation(B: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """K2's bf16 build before its bf16 rounding, in float64: B·M_hi +
+    B·tf32(M − M_hi), folded with B row by row."""
+    hi = tf32(M)
+    lo = tf32(M - hi)
+    Bw = B.double()
+    T = Bw @ hi.double() + Bw @ lo.double()
+    return torch.sum(T * Bw, dim=1)
+
+
+def test_k2_bf16_two_tf32_products_match_reference():
+    """Before rounding, the two products are within 2⁻²⁰ of the exact
+    scores' scale Σ_jk |B_ij M_jk B_ik| (M_lo's truncation); rounded to
+    bf16, they are the Pallas kernel's bf16 scores (interpret mode) and
+    the port's plain version's, within K2's bf16 tolerance (rtol 2⁻⁷ +
+    2e-4, atol 1e-6: one bf16 step beyond the float32 check)."""
+    rng = np.random.default_rng(2)
+    n_rows, p = 157, 300
+    Bf = torch.as_tensor(rng.standard_normal((n_rows, p)) / np.sqrt(p),
+                         dtype=torch.float32).to(torch.bfloat16)
+    G = Bf.double().T @ Bf.double()
+    M = torch.linalg.inv(G + n_rows * 1e-3 * torch.eye(p,
+                                                       dtype=torch.float64))
+    M = M.to(torch.float32)
+    got = k2_bf16_emulation(Bf, M)
+    Bw, Mw = Bf.double(), M.double()
+    exact = torch.sum((Bw @ Mw) * Bw, dim=1)
+    scale = torch.sum((Bw.abs() @ Mw.abs()) * Bw.abs(), dim=1)
+    assert torch.all((got - exact).abs() <= 2.0 ** -20 * scale)
+    bf = got.to(torch.float32).to(torch.bfloat16)
+    want = jrls_scores(jnp.asarray(Bf.float().numpy()).astype(jnp.bfloat16),
+                       jnp.asarray(M.numpy()), interpret=True)
+    assert want.dtype == jnp.bfloat16
+    tol = dict(rtol=2.0 ** -7 + 2e-4, atol=1e-6)
+    close(bf.float(), np.asarray(want, np.float32), **tol)
+    plain = ops.rls_scores(Bf, M)
+    assert plain.dtype == torch.bfloat16
+    close(bf.float(), plain.float(), **tol)
