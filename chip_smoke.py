@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA GPU
 
-Drives ``repro_torch`` (never the JAX package) through sixteen phases and
+Drives ``repro_torch`` (never the JAX package) through seventeen phases and
 exits non-zero on any failure:
 
   1. build     compile the CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -148,7 +148,25 @@ exits non-zero on any failure:
                same tokens both times); (c) mamba2-780m (no attention) and
                musicgen-medium from embeddings (K4 48 times, the codebook
                logits), each with 64 decode steps against the prefill.
- 16. summary   each kernel's time at its path's shapes (CUDA events), its
+ 16. rls       Nyström-RLS attention (attn_approx="nystrom_rls") at
+               phi4-mini-3.8b's published widths with its own 1,024
+               landmarks, bf16, use_pallas, random weights from seed 0:
+               (a) the prefill of 1 x 8,192 tokens through RLS-sparse
+               attention (landmarks from key_rls_scores at p_sketch 2,048
+               on 24 heads; no K4 launch, counts zeroed before and read
+               after), timed, its peak memory, profile and share of NaN
+               score rows (R9), and its logits against K4's exact prefill
+               of the same weights and tokens (reported: the weights are
+               random); (b) nystrom_attention at p = s against K4 on N(0, 1)
+               inputs at (1, 24/8, 8,192, 128) within RLS_IDENTITY_ATOL;
+               (c) ServeEngine(slots=4, max_len=8,192) answering 8 requests
+               of 32 new tokens exactly and through the frozen landmarks
+               (8,192 against 1,152 cache entries read a layer and step);
+               (d) build_small_cfg of phi4-mini-3.8b and zamba2-7b with the
+               launcher's --nystrom settings, float32: prefill and 8 decode
+               steps (frozen, compressed) on the card against the same code
+               on the host's CPU.
+ 17. summary   each kernel's time at its path's shapes (CUDA events), its
                plain version's, the matching PyTorch library call's, and
                its bound; one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
@@ -163,7 +181,8 @@ the kernel checks and K2 / K4 rows alone, ``build,k1,k3,summary`` for
 K1's and K3's checks and rows, ``build,samplers`` and ``build,serve`` for
 this slice's paths (each makes its own data and models; add ``summary`` for
 their rows), ``build,bf16,summary`` for the bf16 paths and the bf16
-instances' rows); the default runs all sixteen. ``limits``, run
+instances' rows, ``build,rls`` for Nyström-RLS attention); the default
+runs all seventeen. ``limits``, run
 only when named (``build,limits``), measures K2's 3xTF32 error at p = 2048,
 4096 and 8192 below the wrapper (which refuses p > 2048 in that build),
 K1's float32 linear kind against ``torch.matmul`` at d = 16 and 256, and
@@ -183,7 +202,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "k1", "k2", "k3", "k4", "main", "parity", "sparse",
           "iter", "samplers", "serve", "bf16", "lm", "train", "families",
-          "summary")
+          "rls", "summary")
 # run only when named: the measurements behind the limits that PERF.md
 # states, K2's TF32X3_MAX_P (and its absence from the bf16 build) and K1's
 # float32 product rate
@@ -384,6 +403,27 @@ MAMBA_ARCH, AUDIO_ARCH = "mamba2-780m", "musicgen-medium"
 # layers, grown linearly to the cell's depth (0.147 and 0.091); the other
 # cells keep LM_LOGIT_RTOL
 SSM_DECODE_RTOL = {ZAMBA_ARCH: 0.0436 * 81 / 24, MAMBA_ARCH: 0.0455 * 48 / 24}
+# phase rls: the LM cell's model with attn_approx="nystrom_rls" at its own
+# nystrom_landmarks (1,024 of the 8,192 prefill tokens, p_sketch 2,048),
+# served over caches of RLS_MAX_LEN (frozen landmarks: 1,024 strided
+# positions and the 128 recent ones read a step, against 8,192)
+RLS_MAX_LEN = 8192
+# (b): nystrom_attention at p = s (every key a landmark: exact causal
+# attention in bf16 arithmetic) against K4 on the same N(0, 1) inputs at
+# the prefill shape. The JAX package's own gap between the two exact
+# routes, nystrom_attention at p = s against attention_ref, in bf16 at
+# (1, 4, 1,024, 128) on the CPU: max |Δ| 0.015625 (one bf16 spacing of an
+# output in [2, 4); tools/rls_identity_probe.py). The bound is twice it
+RLS_IDENTITY_GAP = 0.015625
+RLS_IDENTITY_ATOL = 2 * RLS_IDENTITY_GAP
+# (d): the launcher's reduction (launch/serve.py --nystrom: 64 landmarks,
+# 16 recent) of phi4-mini-3.8b and zamba2-7b, float32, a prefill of
+# RLS_SMALL_SEQ tokens and RLS_SMALL_STEPS decode steps over caches of
+# RLS_SMALL_SEQ, on the card and on the host's CPU; logits held to
+# tests/test_torch_lm.py's LOGIT_TOL
+RLS_SMALL = dict(attn_approx="nystrom_rls", nystrom_landmarks=64,
+                 rls_keep_recent=16)
+RLS_SMALL_SEQ, RLS_SMALL_STEPS, RLS_CPU_LOGIT_ATOL = 256, 8, 1e-4
 # phase train (a): the LM cell's model trained at the launcher's batch and
 # length, float32 masters, bf16 compute, every layer rematerialised
 # (remat="dots" would keep about 7.2 GB more of matrix products), AdamW at
@@ -2984,15 +3024,15 @@ def phase_lm(res: dict, keep: dict) -> None:
     keep["lm"] = True
 
 
-def _serve_run(tag: str, cfg, params, rng) -> dict:
-    """``ServeEngine(slots=LM_SLOTS, max_len=LM_MAX_LEN)`` answering
+def _serve_run(tag: str, cfg, params, rng, max_len: int = LM_MAX_LEN) -> dict:
+    """``ServeEngine(slots=LM_SLOTS, max_len=max_len)`` answering
     LM_REQUESTS requests of LM_NEW new tokens (prompts of 16-128 tokens
     from ``rng``), each step timed to its synchronise; fails unless every
     request is answered in full."""
     import numpy as np
     import torch
     from repro_torch.runtime import Request, ServeEngine
-    engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=max_len)
     step_ms = []
     step_fn = engine.step_fn
 
@@ -3023,7 +3063,7 @@ def _serve_run(tag: str, cfg, params, rng) -> dict:
                generated_per_s=generated / serve_s,
                median_step_ms=float(np.median(step_ms)),
                kv_cache_bytes=cache_bytes)
-    log(f"[{tag}] ServeEngine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}): "
+    log(f"[{tag}] ServeEngine(slots={LM_SLOTS}, max_len={max_len}): "
         f"{len(done)}/{LM_REQUESTS} requests (prompts of "
         f"{int(lengths.min())}-{int(lengths.max())} tokens), {engine.steps} "
         f"steps in {serve_s:.2f} s, {generated} tokens generated = "
@@ -3035,13 +3075,14 @@ def _serve_run(tag: str, cfg, params, rng) -> dict:
     return out
 
 
-def _decode_profile(tag: str, cfg, params, slots: int) -> dict:
+def _decode_profile(tag: str, cfg, params, slots: int,
+                    max_len: int = 8) -> dict:
     """Where a decode step's time goes: four decode steps of ``slots``
-    slots, unprofiled then under the profiler (the device's busy share of
-    the unprofiled wall)."""
+    slots over caches of ``max_len``, unprofiled then under the profiler
+    (the device's busy share of the unprofiled wall)."""
     import torch
     from repro_torch.models import decode_step, init_decode_state
-    st0 = init_decode_state(cfg, slots, 8, device="cuda")
+    st0 = init_decode_state(cfg, slots, max_len, device="cuda")
     if cfg.modality in ("vision", "audio"):
         emb = torch.zeros((slots, 1, cfg.d_model), dtype=cfg.act_dtype,
                           device="cuda")
@@ -3825,6 +3866,324 @@ def phase_families(res: dict, keep: dict) -> None:
     keep["families"] = True
 
 
+class _Selections:
+    """Records every landmark selection that ``core.attention_nystrom``
+    makes (the scores it ranked, the positions it kept; copied to the host)
+    in call order while open; given ``replay`` (another run's records),
+    each call returns that run's positions instead of its own."""
+
+    def __init__(self, replay: list[dict] | None = None):
+        self.calls: list[dict] = []
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.core import attention_nystrom as an
+        self._module, self._select = an, an.select_landmarks
+
+        def select(scores, p):
+            idx = self._select(scores, p)
+            if self.replay is not None:
+                idx = self.replay[len(self.calls)]["idx"].to(idx.device)
+            self.calls.append(dict(scores=scores.float().cpu(),
+                                   idx=idx.cpu()))
+            return idx
+
+        an.select_landmarks = select
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._module.select_landmarks = self._select
+
+
+def _rls_prefill(cfg, params, tokens, out: dict):
+    """(a): the RLS prefill of 1 x LM_SEQ; a first run recording each
+    layer's selection (the share of NaN score rows: R9 at full width),
+    the measured run with the launch counts zeroed just before and read
+    just after (no K4), its peak memory and profile. Returns the logits."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import forward
+    t0 = time.perf_counter()
+    with _Selections() as sel:
+        forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+    out["first_prefill_s"] = time.perf_counter() - t0
+    rows = torch.cat([c["scores"].reshape(-1, c["scores"].shape[-1])
+                      for c in sel.calls])
+    nan_rows = int(torch.isnan(rows).any(-1).sum())
+    out.update(selections=len(sel.calls), score_rows=rows.shape[0],
+               nan_score_rows=nan_rows,
+               nan_row_share=nan_rows / rows.shape[0])
+    log(f"[rls] {len(sel.calls)} selections of {sel.calls[0]['idx'].shape[-1]}"
+        f" landmarks: {nan_rows} of {rows.shape[0]} (layer, head) score rows"
+        f" hold NaN (R9) = {100 * out['nan_row_share']:.2f} %")
+    del sel, rows
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = forward(params, cfg, tokens).logits
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    out.update(prefill_s=wall, tokens_per_s=LM_SEQ / wall, launches=counts,
+               peak_bytes=torch.cuda.max_memory_allocated() - base)
+    log(f"[rls] RLS prefill 1 x {LM_SEQ}: {wall:.3f} s = "
+        f"{LM_SEQ / wall:.0f} tokens/s (first run "
+        f"{out['first_prefill_s']:.2f} s, recording); launches {counts}; "
+        f"peak device memory {out['peak_bytes'] / 1e9:.2f} GB above the "
+        f"weights")
+    check(tuple(logits.shape) == (1, LM_SEQ, cfg.padded_vocab)
+          and logits.dtype == torch.float32,
+          f"rls: logits {logits.dtype} {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "rls: non-finite logits")
+    check(counts["flash_attention"] == 0,
+          f"rls: flash_attention launched {counts['flash_attention']} times "
+          "in the RLS prefill (expected none)")
+    prof = _profile(lambda: forward(params, cfg, tokens))
+    prof["busy_share_of_unprofiled_wall"] = prof["busy_us"] / 1e6 / wall
+    out["profile"] = prof
+    log(f"[rls] profiled RLS prefill: device busy "
+        f"{prof['busy_us'] / 1e3:.1f} ms = "
+        f"{100 * prof['busy_share_of_unprofiled_wall']:.1f} % of the "
+        f"unprofiled {1e3 * wall:.0f} ms, {prof['launches']} device "
+        f"operations")
+    for row in prof["kernels"][:12]:
+        log(f"[rls]   {row['device_us'] / 1e3:9.2f} ms  x{row['calls']:<4d} "
+            f"{row['name']}")
+    return logits
+
+
+def _rls_identity(cfg, out: dict) -> None:
+    """(b): nystrom_attention at p = s against K4 on the same N(0, 1)
+    inputs at the prefill's shape, bf16, causal, within RLS_IDENTITY_ATOL;
+    both timed (CUDA events)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.attention_nystrom import nystrom_attention
+    from repro_torch.kernels import ops as kops
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = np.random.default_rng(0)
+
+    def normal(heads):
+        return torch.from_numpy(g.standard_normal(
+            (1, heads, LM_SEQ, dh)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+
+    q, k, v = normal(h), normal(hkv), normal(hkv)
+    kq = k.repeat_interleave(h // hkv, dim=1)
+    vq = v.repeat_interleave(h // hkv, dim=1)
+    lm = torch.arange(LM_SEQ, device="cuda").expand(1, h, LM_SEQ)
+
+    def rls():
+        return nystrom_attention(q, kq, vq, num_landmarks=LM_SEQ,
+                                 landmarks=lm).out
+
+    got = rls()
+    k4 = kops.attention(q, k, v, causal=True)
+    gap = float((got.float() - k4.float()).abs().max())
+    out["identity"] = dict(
+        shape=[1, h, LM_SEQ, dh], max_abs=gap, bound=RLS_IDENTITY_ATOL,
+        max_out=float(k4.float().abs().max()),
+        rls_ms=cuda_ms(rls, reps=3),
+        k4_ms=cuda_ms(lambda: kops.attention(q, k, v, causal=True), reps=10))
+    ident = out["identity"]
+    log(f"[rls] (b) p = s: nystrom_attention against K4 at (1, {h}/{hkv}, "
+        f"{LM_SEQ}, {dh}) bf16: max|Δ| {gap:.6g} (bound {RLS_IDENTITY_ATOL:g},"
+        f" twice the JAX package's CPU gap {RLS_IDENTITY_GAP:g}), largest "
+        f"|out| {ident['max_out']:.4g}; {ident['rls_ms']:.2f} ms against "
+        f"K4's {ident['k4_ms']:.3f} ms")
+    check(gap <= RLS_IDENTITY_ATOL,
+          f"rls (b): p = s against K4 max|Δ| {gap:.6g}")
+
+
+def _rls_serving(cfg, exact_cfg, params, out: dict) -> None:
+    """(c): ServeEngine(slots=LM_SLOTS, max_len=RLS_MAX_LEN) answering the
+    same LM_REQUESTS requests exactly and through the frozen landmarks,
+    each with four profiled decode steps over caches of RLS_MAX_LEN."""
+    import numpy as np
+    p = min(cfg.nystrom_landmarks, RLS_MAX_LEN)
+    for tag, c, read in (("exact", exact_cfg, RLS_MAX_LEN),
+                         ("rls", cfg, p + max(cfg.rls_keep_recent, 1))):
+        run = out[f"serve_{tag}"] = _serve_run(
+            f"rls/{tag}", c, params, np.random.default_rng(1),
+            max_len=RLS_MAX_LEN)
+        run["entries_read_per_layer_step"] = read
+        run["profile"] = _decode_profile(f"rls/{tag}", c, params, LM_SLOTS,
+                                         RLS_MAX_LEN)
+        log(f"[rls] (c) {tag}: {read} cache entries read a layer and step, "
+            f"median step {run['median_step_ms']:.2f} ms, "
+            f"{run['generated_per_s']:.1f} tokens/s, device busy "
+            f"{100 * run['profile']['busy_share_of_unprofiled_wall']:.1f} %")
+
+
+def _rls_selection_parity(cpu: list[dict], card: list[dict]) -> dict:
+    """Per selection call: the rows (one per batch entry and head) whose
+    scores hold NaN on either side (R9); in the other rows, the largest
+    score difference, the rows whose landmarks are equal, and the rows
+    where the CPU's p-th and (p+1)-th scores lie further apart than the two
+    sides' scores differ there (the rows the scores decide, where the
+    landmarks must be equal)."""
+    import torch
+    check(len(cpu) == len(card), f"rls (d): {len(cpu)} selections on the "
+          f"CPU, {len(card)} on the card")
+    rows = nan_cpu = nan_card = decided = same = equal = finite_rows = 0
+    max_diff = 0.0
+    for a, b in zip(cpu, card):
+        sa = a["scores"].reshape(-1, a["scores"].shape[-1])
+        sb = b["scores"].reshape(-1, b["scores"].shape[-1])
+        ia = a["idx"].reshape(-1, a["idx"].shape[-1])
+        ib = b["idx"].reshape(-1, b["idx"].shape[-1])
+        p = ia.shape[-1]
+        na, nb = torch.isnan(sa).any(-1), torch.isnan(sb).any(-1)
+        rows += sa.shape[0]
+        nan_cpu += int(na.sum())
+        nan_card += int(nb.sum())
+        both = sa.isfinite() & sb.isfinite()
+        diff = torch.where(both, (sa - sb).abs(), torch.zeros_like(sa))
+        ranked = torch.sort(sa, dim=-1, descending=True).values
+        gap = (ranked[:, p - 1] - ranked[:, p] if p < sa.shape[-1]
+               else torch.full_like(ranked[:, 0], float("inf")))
+        finite = ~na & ~nb
+        ok = finite & (gap > diff.amax(-1))
+        decided += int(ok.sum())
+        same += int((ia == ib).all(-1)[ok].sum())
+        finite_rows += int(finite.sum())
+        equal += int((ia == ib).all(-1)[finite].sum())
+        if finite.any():
+            max_diff = max(max_diff, float(diff[finite].max()))
+    return dict(calls=len(cpu), rows=rows, nan_rows_cpu=nan_cpu,
+                nan_rows_card=nan_card, finite_rows=finite_rows,
+                max_score_diff=max_diff, equal_rows=equal,
+                decided_rows=decided, equal_decided_rows=same)
+
+
+def _rls_card_vs_cpu(arch: str, out: dict) -> None:
+    """(d): the launcher's reduction with RLS attention, float32, the same
+    weights (seed 0, made on the CPU and copied): a prefill of
+    RLS_SMALL_SEQ tokens and RLS_SMALL_STEPS decode steps (frozen for the
+    dense family, compressed for the hybrid) on the card and on the host's
+    CPU. The card's selections are held against the CPU's where
+    the scores decide them; the card's logits, with the CPU's selections
+    replayed, within RLS_CPU_LOGIT_ATOL of the CPU's."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.launch.train import build_small_cfg
+    from repro_torch.models import decode_step, forward, init_decode_state
+    from repro_torch.models import init_model
+    cfg = build_small_cfg(arch, **RLS_SMALL)
+    host = init_model(cfg, device="cpu")
+    card = tree_map(lambda a: a.to("cuda"), host)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, RLS_SMALL_SEQ)), dtype=torch.int32)
+
+    def run(params, device, replay=None):
+        with _Selections(replay) as sel:
+            pre = forward(params, cfg, toks.to(device)).logits
+            st = init_decode_state(cfg, 1, RLS_SMALL_SEQ, device=device)
+            steps = []
+            for i in range(RLS_SMALL_STEPS):
+                lg, st = decode_step(params, cfg, toks[:, i:i + 1].to(device),
+                                     st)
+                steps.append(lg[:, 0])
+        return pre.cpu(), torch.stack(steps, 1).cpu(), sel.calls
+
+    t0 = time.perf_counter()
+    want = run(host, "cpu")
+    cpu_s = time.perf_counter() - t0
+    free = run(card, "cuda")
+    held = run(card, "cuda", replay=want[2])
+    sel = _rls_selection_parity(want[2], free[2])
+    res = out[f"cpu_{arch}"] = dict(
+        cpu_s=cpu_s, selection=sel,
+        decode=("compressed" if cfg.family == "hybrid" else "frozen"),
+        prefill_max_abs=float((held[0] - want[0]).abs().max()),
+        decode_max_abs=float((held[1] - want[1]).abs().max()),
+        free_prefill_max_abs=float((free[0] - want[0]).abs().max()),
+        free_decode_max_abs=float((free[1] - want[1]).abs().max()),
+        max_logit=float(want[0].abs().max()))
+    log(f"[rls] (d) {arch} (build_small_cfg, float32, {res['decode']} "
+        f"decode): {sel['calls']} selections, {sel['rows']} score rows; NaN "
+        f"rows (R9) {sel['nan_rows_cpu']} on the CPU, {sel['nan_rows_card']}"
+        f" on the card; in the {sel['finite_rows']} others scores within "
+        f"{sel['max_score_diff']:.3g}, landmarks equal in "
+        f"{sel['equal_rows']} of them and in {sel['equal_decided_rows']} of "
+        f"the {sel['decided_rows']} rows the scores decide. With the CPU's "
+        f"selections: prefill max|Δ| {res['prefill_max_abs']:.3g}, "
+        f"{RLS_SMALL_STEPS} decode steps {res['decode_max_abs']:.3g} (bound "
+        f"{RLS_CPU_LOGIT_ATOL:g}, largest |logit| {res['max_logit']:.3g}); "
+        f"with its own {res['free_prefill_max_abs']:.3g} / "
+        f"{res['free_decode_max_abs']:.3g}; CPU run {cpu_s:.1f} s")
+    check(sel["equal_decided_rows"] == sel["decided_rows"],
+          f"rls (d) {arch}: the card selects other landmarks where the "
+          "scores decide them")
+    check(bool(torch.isfinite(held[0]).all() & torch.isfinite(held[1]).all()),
+          f"rls (d) {arch}: non-finite logits")
+    check(res["prefill_max_abs"] <= RLS_CPU_LOGIT_ATOL
+          and res["decode_max_abs"] <= RLS_CPU_LOGIT_ATOL,
+          f"rls (d) {arch}: the card's logits part from the CPU's")
+
+
+def phase_rls(res: dict, keep: dict) -> None:
+    """Nyström-RLS attention at the LM cell's published widths: (a) the RLS
+    prefill, held against K4's exact prefill of the same weights and tokens
+    (reported, not bounded: the weights are random); (b) the p = s
+    identity against K4; (c) serving, exact and through frozen landmarks;
+    (d) the card against the port's CPU path at the launcher's reduction."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import forward
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(_lm_config(), attn_approx="nystrom_rls")
+    exact_cfg = dataclasses.replace(cfg, attn_approx="none")
+    p = min(cfg.nystrom_landmarks, LM_SEQ)
+    out = res["rls"] = dict(arch=LM_ARCH, seq=LM_SEQ, landmarks=p,
+                            p_sketch=min(2 * p, LM_SEQ),
+                            keep_recent=cfg.rls_keep_recent)
+    part_s = out["part_s"] = {}
+    t_part = time.perf_counter()
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        now = time.perf_counter()
+        part_s[name] = now - t_part
+        t_part = now
+        log(f"[rls] ({name}) took {part_s[name]:.1f} s")
+
+    params = _family_model("rls", cfg, out)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, LM_SEQ)), dtype=torch.int32, device="cuda")
+    logits = _rls_prefill(cfg, params, tokens, out)
+    t0 = time.perf_counter()
+    exact = forward(params, exact_cfg, tokens).logits
+    torch.cuda.synchronize()
+    out["exact_prefill_s"] = time.perf_counter() - t0
+    par = out["against_exact"] = _logit_parity(logits, exact)
+    log(f"[rls] (a) against K4's exact prefill ({out['exact_prefill_s']:.3f}"
+        f" s): max|Δ| {par['max_abs']:.4g} against a largest |logit| "
+        f"{par['max_logit']:.4g}, arg-max agrees at "
+        f"{100 * par['argmax_agree']:.2f} % of {LM_SEQ} positions (random "
+        "weights: reported, not bounded)")
+    del logits, exact
+    torch.cuda.empty_cache()
+    part("a")
+    _rls_identity(cfg, out)
+    torch.cuda.empty_cache()
+    part("b")
+    _rls_serving(cfg, exact_cfg, params, out)
+    del params
+    torch.cuda.empty_cache()
+    part("c")
+    for arch in (LM_ARCH, ZAMBA_ARCH):
+        _rls_card_vs_cpu(arch, out)
+    part("d")
+    keep["rls"] = True
+
+
 def _profile(run) -> dict:
     """Device time by kernel over one more ``run()`` (a fit and its
     predictions), under ``torch.profiler`` (CUPTI), and the device's busy
@@ -4431,6 +4790,8 @@ def main() -> int:
             phase_train(res, keep)
         elif name == "families":
             phase_families(res, keep)
+        elif name == "rls":
+            phase_rls(res, keep)
         elif name == "summary":
             phase_summary(res, keep)
         elif name == "limits":

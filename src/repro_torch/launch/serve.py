@@ -6,16 +6,17 @@ card; ``--device cpu`` runs it on the CPU through the plain versions. Every
 text arch serves: dense, moe (deepseek-moe-16b, llama4-scout-17b-a16e), ssm
 (mamba2-780m) and hybrid (zamba2-7b); the vision and audio archs take
 embeddings, which ``ServeEngine``'s token requests cannot carry.
-``--nystrom`` (the paper's RLS-compressed KV reads) is ROADMAP item 12.4.
+``--nystrom`` turns on the paper's RLS landmark attention and its
+compressed KV reads (64 landmarks, 16 recent positions, as the reference).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
 from ..models import init_model
-from ..models.attention import NYSTROM_TODO
 from ..runtime import Request, ServeEngine
 from .train import build_small_cfg
 
@@ -30,10 +31,11 @@ def main(argv: list[str] | None = None) -> list[Request]:
     ap.add_argument("--nystrom", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.nystrom:
-        raise NotImplementedError(NYSTROM_TODO)
 
     cfg = build_small_cfg(args.arch)
+    if args.nystrom:
+        cfg = dataclasses.replace(cfg, attn_approx="nystrom_rls",
+                                  nystrom_landmarks=64, rls_keep_recent=16)
     params = init_model(cfg, device=args.device)     # seed 0
     engine = ServeEngine(cfg, params, slots=args.slots,
                          max_len=args.max_len)

@@ -1,16 +1,22 @@
-"""Attention blocks: exact GQA attention (full or sliding-window) + KV cache.
+"""Attention blocks: GQA (full / sliding-window / Nyström-RLS) + KV cache.
 
-The port of ``models/attention.py`` for exact attention:
+The port of ``models/attention.py``:
 
   * prefill/training — ``attention_block``, the reference's branches in its
-    order: K4 through ``kernels.ops.attention`` when ``cfg.use_pallas`` and
-    no softcap; else, past 1,024 tokens, the chunked online softmax
-    (``flash_attention_chunked``, the forward of the reference's
-    ``flash_attention_jnp``); else the softcapped or the plain reference.
-  * decode — one token against the KV cache (``decode_attention_block``).
-
-``attn_approx="nystrom_rls"`` (the paper's landmark attention and its
-RLS-compressed decode) is ROADMAP item 12.4 and raises.
+    order: with ``cfg.attn_approx="nystrom_rls"`` the paper's RLS-sparse
+    landmark attention (``core.attention_nystrom``, causal, the keys
+    repeated to every query head); else K4 through ``kernels.ops.attention``
+    when ``cfg.use_pallas`` and no softcap; else, past 1,024 tokens, the
+    chunked online softmax (``flash_attention_chunked``, the forward of the
+    reference's ``flash_attention_jnp``); else the softcapped or the plain
+    reference.
+  * decode — one token against the KV cache (``decode_attention_block``):
+    exact; with ``nystrom_rls`` against the landmark positions frozen in
+    the state plus a recency window (``_decode_rls_frozen``), or, with no
+    frozen landmarks, against the cache cut to its p highest-scoring
+    entries at every step (``_decode_rls_compressed``). They keep the
+    reference's faults (ROADMAP): R7 in the first, R8 and R9 in the second;
+    and ``refresh_landmarks``, which nothing calls, as the reference does.
 
 Layouts as the reference's: activations (b, s, d), attention operands
 (b, h, s, dh), caches (b, hkv, S_max, dh) per layer.
@@ -23,18 +29,11 @@ import torch
 from torch import Tensor
 
 from ..configs.base import ModelConfig
+from ..core.attention_nystrom import (key_rls_scores, nystrom_attention,
+                                      rls_kv_compression, select_landmarks)
 from ..kernels import ops, ref
 from .layers import apply_rope, rope_frequencies, softcap_logits, \
     truncated_normal_init
-
-NYSTROM_TODO = ("attn_approx='nystrom_rls' (Nyström-RLS landmark attention "
-                "and its compressed decode) is not ported: ROADMAP item 12.4")
-
-
-def check_exact(cfg: ModelConfig) -> None:
-    """Refuse the attention modes the port does not run yet."""
-    if cfg.attn_approx != "none":
-        raise NotImplementedError(NYSTROM_TODO)
 
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig,
@@ -93,13 +92,20 @@ def _out_proj(params: dict, out: Tensor) -> Tensor:
 def attention_block(params: dict, cfg: ModelConfig, x: Tensor,
                     positions: Tensor, *, window: int = 0) -> Tensor:
     """Training / prefill self-attention. x: (b, s, d) → (b, s, d)."""
-    check_exact(cfg)
     s = x.shape[1]
     q, k, v = _qkv(params, cfg, x, positions)
     qt = q.transpose(1, 2)       # (b, h, s, dh)
     kt = k.transpose(1, 2)
     vt = v.transpose(1, 2)
-    if cfg.use_pallas and cfg.attn_softcap == 0:
+    if cfg.attn_approx == "nystrom_rls":
+        # the paper's technique: RLS landmark attention (causal → RLS-sparse)
+        rep = cfg.n_heads // cfg.n_kv_heads
+        kq = kt.repeat_interleave(rep, dim=1) if rep > 1 else kt
+        vq = vt.repeat_interleave(rep, dim=1) if rep > 1 else vt
+        out = nystrom_attention(qt, kq, vq,
+                                num_landmarks=min(cfg.nystrom_landmarks, s),
+                                causal=True).out
+    elif cfg.use_pallas and cfg.attn_softcap == 0:
         out = ops.attention(qt, kt, vt, causal=True, window=window)
     elif s > 1024:
         # chunked online softmax: the memory-safe path
@@ -193,6 +199,8 @@ class DecodeState(NamedTuple):
     length: int      # global write pointer (tokens in the cache)
     start: Tensor    # (b,) int32 — per-slot visibility start (continuous
                      # batching: a re-used slot must not see its predecessor)
+    lm: Tensor | None = None   # (b, hkv, p) int32 — frozen RLS landmark
+                               # positions, or None
 
 
 def decode_attention_block(params: dict, cfg: ModelConfig, x: Tensor,
@@ -202,18 +210,28 @@ def decode_attention_block(params: dict, cfg: ModelConfig, x: Tensor,
     tokens. Every slot takes the global write pointer as its RoPE position,
     as the reference does (RoPE is relative, so a slot's own offset is not
     needed). The new key and value are written into the cache in place;
-    the returned state shares its tensors."""
-    check_exact(cfg)
+    the returned state shares its tensors. With ``cfg.attn_approx=
+    "nystrom_rls"`` the query reads the frozen landmarks ``state.lm`` and a
+    recency window, or, when ``state.lm`` is None, the cache cut to its RLS
+    landmarks at this step."""
     b = x.shape[0]
     positions = torch.full((b, 1), state.length, device=x.device)
     q, k_new, v_new = _qkv(params, cfg, x, positions)
     cache = state.cache
     cache.k[:, :, state.length] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, :, state.length] = v_new[:, 0].to(cache.v.dtype)
-    out = _decode_exact(q.transpose(1, 2), cache.k, cache.v, state.length,
-                        state.start, cfg, window)
+    qt = q.transpose(1, 2)                              # (b, h, 1, dh)
+    if cfg.attn_approx == "nystrom_rls" and state.lm is not None:
+        out = _decode_rls_frozen(qt, cache.k, cache.v, state.length,
+                                 state.start, state.lm, cfg)
+    elif cfg.attn_approx == "nystrom_rls":
+        out = _decode_rls_compressed(qt, cache.k, cache.v, state.length,
+                                     state.start, cfg)
+    else:
+        out = _decode_exact(qt, cache.k, cache.v, state.length, state.start,
+                            cfg, window)
     o = _out_proj(params, out.transpose(1, 2).to(x.dtype))
-    return o, DecodeState(cache, state.length + 1, state.start)
+    return o, DecodeState(cache, state.length + 1, state.start, state.lm)
 
 
 def _length_mask(S: int, length: int, window: int, start: Tensor) -> Tensor:
@@ -240,3 +258,69 @@ def _decode_exact(q: Tensor, k: Tensor, v: Tensor, length: int, start: Tensor,
     w = torch.softmax(logits, dim=-1)
     out = torch.matmul(w, v.float())
     return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def _attend(q: Tensor, k: Tensor, v: Tensor, valid: Tensor) -> Tensor:
+    """q: (b, h, 1, dh) against gathered entries k, v (b, hkv, n, dh) whose
+    mask ``valid`` is (b, hkv, n), in float32; masked logits −1e30."""
+    B, Hq, _, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    logits = torch.matmul(qg, k.float().transpose(-1, -2)) / (D ** 0.5)
+    logits = logits.masked_fill(~valid[:, :, None, :], -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.matmul(w, v.float())
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def _decode_rls_frozen(q: Tensor, k: Tensor, v: Tensor, length: int,
+                       start: Tensor, lm: Tensor, cfg: ModelConfig) -> Tensor:
+    """Amortised RLS-compressed decode: attend to the p landmark positions
+    frozen in the state and a recency window of r = max(rls_keep_recent, 1)
+    positions, max(length − r + 1 + arange(r), 0), reading p + r cache
+    entries a step instead of S. As the reference: a recent position that is
+    also a landmark is read twice, and while length < r position 0 fills
+    the window's clamped slots (ROADMAP R7)."""
+    r = max(cfg.rls_keep_recent, 1)
+    rec = (length - r + 1 + torch.arange(r, device=lm.device)).clamp_min(0)
+    pos = torch.cat([lm.long(), rec.expand(lm.shape[:-1] + (r,))], dim=-1)
+    idx = pos[..., None]
+    k_c = torch.take_along_dim(k, idx, dim=-2)
+    v_c = torch.take_along_dim(v, idx, dim=-2)
+    valid = (pos <= length) & (pos >= start[:, None, None])
+    return _attend(q, k_c, v_c, valid)
+
+
+def refresh_landmarks(k_cache: Tensor, length: int, start: Tensor, p: int,
+                      lam: float = 1e-3, p_sketch: int = 256) -> Tensor:
+    """RLS landmark positions (b, hkv, p) int32 of the live cache: keys
+    outside [start_b, length] zeroed before scoring and ranked −inf. The
+    reference defines it for a refresh every R decode steps but nothing
+    calls it (ROADMAP R7); neither does the port. k_cache: (b, hkv, S, dh)."""
+    S = k_cache.shape[2]
+    mask = _length_mask(S, length, 0, start)                   # (b, S)
+    k_m = torch.where(mask[:, None, :, None], k_cache,
+                      torch.zeros((), dtype=k_cache.dtype,
+                                  device=k_cache.device))
+    scores = key_rls_scores(k_m, min(p_sketch, S), lam)
+    scores = scores.masked_fill(~mask[:, None, :], float("-inf"))
+    return select_landmarks(scores, p).to(torch.int32)
+
+
+def _decode_rls_compressed(q: Tensor, k: Tensor, v: Tensor, length: int,
+                           start: Tensor, cfg: ModelConfig) -> Tensor:
+    """The paper's technique at decode: read only the p = O(d_eff) highest-
+    ridge-leverage cache entries (and the pinned window) instead of all S,
+    scoring the whole buffer at every step with unwritten and foreign slots
+    zeroed. As the reference: the pins are the buffer's last slots (ROADMAP
+    R8), and on a partly filled cache the float32 factorisation can fail,
+    giving NaN scores (R9)."""
+    S = k.shape[2]
+    mask = _length_mask(S, length, 0, start)
+    k_m = torch.where(mask[:, None, :, None], k,
+                      torch.zeros((), dtype=k.dtype, device=k.device))
+    comp = rls_kv_compression(k_m, v, min(cfg.nystrom_landmarks, S),
+                              keep_recent=cfg.rls_keep_recent)
+    valid = (comp.positions <= length) \
+        & (comp.positions >= start[:, None, None])           # (b, hkv, p)
+    return _attend(q, comp.k, comp.v, valid)

@@ -40,7 +40,14 @@ reference does.
 takes gradients through ``forward_hidden``, each layer rematerialised as
 ``cfg.remat`` says (``_remat``), the LM head chunked (``head_chunk``).
 Training the moe, ssm and hybrid families or from embeddings is ROADMAP
-item 12.3b and raises; so does Nyström-RLS attention (item 12.4).
+item 12.3b and raises.
+
+``cfg.attn_approx="nystrom_rls"`` runs the paper's landmark attention in
+every attention layer (``attention.attention_block``) and its RLS decode:
+``init_decode_state`` freezes strided landmark positions over the cache
+for the dense, vlm, audio and moe families (``DecodeCaches.lm``), so their
+steps read p + ``rls_keep_recent`` entries; the hybrid's shared block has
+none and scores its whole cache at every step, as the reference does.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ModelConfig
 from ..core.precision import to_dtype
 from ..device import resolve_device
-from .attention import (DecodeState, KVCache, attention_block, check_exact,
+from .attention import (DecodeState, KVCache, attention_block,
                         decode_attention_block, init_attention,
                         init_kv_cache)
 from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
@@ -71,10 +78,9 @@ TRAIN_TODO = ("training is ported for the dense text family only: the moe, "
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet, naming its ROADMAP item."""
+    """Refuse a family that the model does not know."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    check_exact(cfg)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -376,31 +382,43 @@ class DecodeCaches(NamedTuple):
     ssm: SSMState | None     # stacked (L, b, ...) SSM states
     length: int              # global write pointer
     start: Tensor            # (b,) int32 — per-slot visibility start
+    lm: Tensor | None = None  # (L, b, hkv, p) int32 frozen RLS landmarks
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       prefill_len: int = 0, *, device="cuda") -> DecodeCaches:
     """Zeroed caches: a KV cache per attention layer (the moe family's
     ``layer0`` at index 0; one per use of the hybrid's shared block) and an
-    SSM state per Mamba2 layer."""
+    SSM state per Mamba2 layer. With ``nystrom_rls`` the dense, vlm, audio
+    and moe families also get frozen landmarks: p = min(nystrom_landmarks,
+    max_len) positions strided by max(max_len // p, 1), the same in every
+    layer, slot and head (the reference never refreshes them, ROADMAP R7);
+    the hybrid's are None."""
     check_supported(cfg)
     dev = resolve_device(device)
     fam = cfg.family
-    kv = ssm = None
+    kv = ssm = lm = None
     if fam in ("dense", "vlm", "audio", "moe"):
         kv = init_kv_cache(cfg, cfg.n_layers, batch, max_len, device=dev)
+        if cfg.attn_approx == "nystrom_rls":
+            p = min(cfg.nystrom_landmarks, max_len)
+            base = (torch.arange(p, dtype=torch.int32, device=dev)
+                    * max(max_len // p, 1)) % max_len
+            lm = base.expand(cfg.n_layers, batch, cfg.n_kv_heads,
+                             p).contiguous()
     elif fam == "hybrid":
         kv = init_kv_cache(cfg, _hybrid_groups(cfg)[0], batch, max_len,
                            device=dev)
     if fam in ("ssm", "hybrid"):
         ssm = init_ssm_state(cfg, batch, cfg.n_layers, device=dev)
     return DecodeCaches(kv, ssm, int(prefill_len),
-                        torch.zeros((batch,), dtype=torch.int32, device=dev))
+                        torch.zeros((batch,), dtype=torch.int32, device=dev),
+                        lm)
 
 
 def _layer_state(state: DecodeCaches, i: int) -> DecodeState:
     return DecodeState(KVCache(state.kv.k[i], state.kv.v[i]), state.length,
-                       state.start)
+                       state.start, None if state.lm is None else state.lm[i])
 
 
 def _ssm_state(state: DecodeCaches, i: int) -> SSMState:

@@ -16,6 +16,7 @@ version (tensor cores, softmax weights rounded to bf16 for P·V): a plain
 emulation of that arithmetic is held against the Pallas kernel at bf16
 under the card's tolerance. Inputs are made with numpy from a seed.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +40,15 @@ BF16_TOL = dict(rtol=2.0 ** -7, atol=2e-5)
 P_ROUND = 2.0 ** -8
 GQA = [(8, 8), (8, 2), (4, 1)]
 MASKS = [(True, 0), (False, 0), (True, 64)]
+
+# the float32 JAX references under jit (cheaper here than op by op)
+jax_attention_ref = jax.jit(jax_ref.attention_ref,
+                            static_argnames=("causal", "window"))
+jax_flash_jnp = jax.jit(jax_attention.flash_attention_jnp,
+                        static_argnames=("causal", "window", "softcap",
+                                         "chunk_q", "chunk_k"))
+jax_softcap = jax.jit(jax_attention._softcap_attention,
+                      static_argnums=(3, 4))
 
 
 def _qkv(b, hq, hkv, s, d, seed, dtype=np.float32):
@@ -141,12 +151,13 @@ def test_port_attention_ref_matches_jax():
     """float32, and bfloat16 (logits rounded in the input dtype)."""
     q, k, v = _qkv(2, 4, 2, 96, 32, seed=8)
     for causal, window in MASKS:
-        want = jax_ref.attention_ref(jnp.asarray(q), jnp.asarray(k),
-                                     jnp.asarray(v), causal=causal,
-                                     window=window)
+        want = jax_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal,
+                                 window=window)
         close(ref.attention_ref(t(q), t(k), t(v), causal=causal,
                                 window=window), want, **F32_TOL)
     jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    # eagerly: under jit XLA keeps the bf16 logits in float32
     want = jax_ref.attention_ref(*jb, scale=0.3)
     got = ref.attention_ref(*(t(a).bfloat16() for a in (q, k, v)), scale=0.3)
     close(got.float(), np.asarray(want, np.float32), **BF16_TOL)
@@ -161,7 +172,7 @@ def test_chunked_attention_matches_flash_attention_jnp(s, softcap, window,
     is the attention_block branch past 1,024 tokens, at its chunk sizes."""
     q, k, v = _qkv(1, 4, 2, s, 16, seed=s)
     cq, ck = chunks
-    want = jax_attention.flash_attention_jnp(
+    want = jax_flash_jnp(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
         window=window, softcap=softcap, chunk_q=cq, chunk_k=ck)
     got = attention.flash_attention_chunked(
@@ -173,8 +184,8 @@ def test_chunked_attention_matches_flash_attention_jnp(s, softcap, window,
 def test_softcap_attention_matches_jax():
     q, k, v = _qkv(2, 4, 2, 64, 32, seed=9)
     for window in (0, 16):
-        want = jax_attention._softcap_attention(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 50.0, window)
+        want = jax_softcap(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           50.0, window)
         got = attention._softcap_attention(t(q), t(k), t(v), 50.0, window)
         close(got, want, **F32_TOL)
 

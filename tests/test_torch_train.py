@@ -103,7 +103,9 @@ def model():
     """(JAX cfg, port cfg, JAX params, token rows (B, S + 1))."""
     jcfg = dataclasses.replace(jax_config(ARCH), **OVER)
     tcfg = dataclasses.replace(get_config(ARCH), **OVER)
-    jparams = jax_init_model(jcfg, jax.random.key(0))
+    # under jit: the same weights as eagerly, a few seconds cheaper
+    jparams = jax.jit(jax_init_model, static_argnums=0)(jcfg,
+                                                       jax.random.key(0))
     toks = np.random.default_rng(7).integers(
         0, jcfg.vocab_size, (B, S + 1)).astype(np.int32)
     return jcfg, tcfg, jparams, toks
