@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA GPU
 
-Drives ``repro_torch`` (never the JAX package) through seventeen phases and
+Drives ``repro_torch`` (never the JAX package) through eighteen phases and
 exits non-zero on any failure:
 
   1. build     compile the CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -134,7 +134,26 @@ exits non-zero on any failure:
                SIMT instance) under TrainDriver, 12 steps with checkpoints
                every 4, uninterrupted and with a StepFailure at step 6: one
                restart, the losses equal to the uninterrupted run's.
- 15. families  the moe, hybrid, ssm and audio families at their published
+ 15. train_families
+               training the moe, ssm, hybrid and audio families: K4 at the
+               attention cells' training shapes, (8, 16, 512, 128),
+               (8, 32, 512, 112) and (8, 24, 512, 64) bf16 causal, against
+               its plain version, timed beside it and SDPA; (a) four cells
+               as phase train (a) trains its model (float32 masters, bf16
+               compute, use_pallas, remat="full", 4 AdamW steps at 8 x 512,
+               random weights from seed 0, one model at a time):
+               mamba2-780m and musicgen-medium (from embeddings, codebook
+               labels) at their published size, deepseek-moe-16b cut to
+               layer0 + 5 MoE layers and zamba2-7b to 7 groups of 6 (42
+               layers), widths untouched; ms a step, tokens/s, MFU (N =
+               the parameters one token touches), peak memory, K4 launches
+               a step, one profiled step; (b) the six archs that train at
+               build_small_cfg, float32: the loss and every gradient
+               through K4 against the plain route (MoE routing replayed);
+               (c) the launcher's TrainDriver for deepseek-moe-16b and
+               musicgen-medium, 12 steps with a StepFailure at step 6: the
+               losses bit-equal to the uninterrupted run's.
+ 16. families  the moe, hybrid, ssm and audio families at their published
                widths, bfloat16, use_pallas, random weights from seed 0,
                one model at a time, each prefill of 1 x 8,192 with the
                launch counts zeroed before and read after, timed, its peak
@@ -148,7 +167,7 @@ exits non-zero on any failure:
                same tokens both times); (c) mamba2-780m (no attention) and
                musicgen-medium from embeddings (K4 48 times, the codebook
                logits), each with 64 decode steps against the prefill.
- 16. rls       Nyström-RLS attention (attn_approx="nystrom_rls") at
+ 17. rls       Nyström-RLS attention (attn_approx="nystrom_rls") at
                phi4-mini-3.8b's published widths with its own 1,024
                landmarks, bf16, use_pallas, random weights from seed 0:
                (a) the prefill of 1 x 8,192 tokens through RLS-sparse
@@ -166,7 +185,7 @@ exits non-zero on any failure:
                launcher's --nystrom settings, float32: prefill and 8 decode
                steps (frozen, compressed) on the card against the same code
                on the host's CPU.
- 17. summary   each kernel's time at its path's shapes (CUDA events), its
+ 18. summary   each kernel's time at its path's shapes (CUDA events), its
                plain version's, the matching PyTorch library call's, and
                its bound; one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
@@ -175,14 +194,15 @@ exits non-zero on any failure:
 sparse path, ``build,iter`` for the iterative and streaming paths (it
 makes its own data; ``build,iter,summary`` adds K1's rows at their
 shapes), ``build,k4,lm,summary`` for the LM, ``build,k4,train,summary``
-for training, ``build,k4,families,summary`` for the moe, hybrid, ssm and
+for training, ``build,train_families,summary`` for training the other
+families, ``build,k4,families,summary`` for the moe, hybrid, ssm and
 audio families (K4's rows at their shapes), ``build,k2,k4,summary`` for
 the kernel checks and K2 / K4 rows alone, ``build,k1,k3,summary`` for
 K1's and K3's checks and rows, ``build,samplers`` and ``build,serve`` for
 this slice's paths (each makes its own data and models; add ``summary`` for
 their rows), ``build,bf16,summary`` for the bf16 paths and the bf16
 instances' rows, ``build,rls`` for Nyström-RLS attention); the default
-runs all seventeen. ``limits``, run
+runs all eighteen. ``limits``, run
 only when named (``build,limits``), measures K2's 3xTF32 error at p = 2048,
 4096 and 8192 below the wrapper (which refuses p > 2048 in that build),
 K1's float32 linear kind against ``torch.matmul`` at d = 16 and 256, and
@@ -201,8 +221,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "k1", "k2", "k3", "k4", "main", "parity", "sparse",
-          "iter", "samplers", "serve", "bf16", "lm", "train", "families",
-          "rls", "summary")
+          "iter", "samplers", "serve", "bf16", "lm", "train",
+          "train_families", "families", "rls", "summary")
 # run only when named: the measurements behind the limits that PERF.md
 # states, K2's TF32X3_MAX_P (and its absence from the bf16 build) and K1's
 # float32 product rate
@@ -438,6 +458,38 @@ TRAIN_DRIVER_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 6
 # the step is deterministic; else (an op whose sums land in another order
 # from run to run) within this relative difference
 TRAIN_LOSS_RTOL = 1e-6
+# phase train_families: the moe, ssm, hybrid and audio cells trained as
+# phase train (a) trains the dense cell (float32 masters, bf16 compute,
+# remat="full", AdamW at TRAIN_OPT, TRAIN_STEPS steps at TRAIN_BATCH x
+# TRAIN_SEQ), one model at a time. Masters, m, v and the gradients take 16
+# bytes a parameter: mamba2-780m (12.50 GB) and musicgen-medium (29.30 GB,
+# the codebook head included) train at their published size;
+# deepseek-moe-16b (262 GB) is cut to layer0 and 5 MoE layers (embed and
+# unembed 6.7 GB, layer0 1.35, an MoE layer 9.41: 55.08 GB) and zamba2-7b
+# (106.8 GB) to 7 whole groups of 6 SSM layers, each with its shared block
+# (the two tables 3.76 GB, the shared block 3.29, an SSM layer 1.21: 57.87
+# GB); widths untouched
+TRAIN_FAMILIES = ((MAMBA_ARCH, {}), (AUDIO_ARCH, {}),
+                  (MOE_ARCH, dict(n_layers=6)), (ZAMBA_ARCH, dict(n_layers=42)))
+# (b): the six archs at the launcher's build_small_cfg, float32, the same
+# weights and batch through K4's SIMT instance and through the plain
+# chunked attention (the MoE routing of the plain run replayed in the K4
+# run, since a rounding can flip a top-k choice): the loss within rtol
+# TRAIN_ROUTE_LOSS_RTOL, each gradient leaf within TRAIN_ROUTE_GRAD_RTOL of
+# the plain one in relative l2 norm (a leaf that the loss does not reach is
+# zero on both). Both routes are IEEE float32 and differ only in the
+# attention forward's order of summation (at most 2e-5 absolute, phase
+# k4), which the backward carries through the same plain autograd. On an
+# H100 the losses came out equal and the worst leaf 1.5e-5 of its norm
+# (zamba2-7b's A_log; the attention archs' wk 2.4e-6 to 4.6e-6): margins
+# of 6.6 and more
+TRAIN_ROUTE_LOSS_RTOL, TRAIN_ROUTE_GRAD_RTOL = 1e-5, 1e-4
+TRAIN_SMALL_ARCHS = (MOE_ARCH, "llama4-scout-17b-a16e", MAMBA_ARCH,
+                     ZAMBA_ARCH, "pixtral-12b", AUDIO_ARCH)
+# (c): the launcher's driver at build_small_cfg with one injected failure,
+# for the MoE arch (its dispatch takes no atomics, forward or backward:
+# bit-equal) and the codebook arch (embeddings from batch_for_step)
+TRAIN_DRIVER_ARCHS = (MOE_ARCH, AUDIO_ARCH)
 
 
 def log(msg: str) -> None:
@@ -3442,6 +3494,377 @@ def phase_train(res: dict, keep: dict) -> None:
     keep["train"] = True
 
 
+# ------------------------------------------- training the LM families
+
+def _family_train_config(arch: str, **cut):
+    """A family cell as phase train_families trains it."""
+    import dataclasses
+    return dataclasses.replace(_family_config(arch), remat="full", **cut)
+
+
+def _k4_uses(cfg) -> int:
+    """Attention layers (uses of the shared block) in one forward."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
+def _k4_per_train_step(cfg) -> int:
+    """K4 launches in one step under remat "full" or "dots" (attention's
+    output is not a matrix product, so "dots" recomputes it too): every
+    attention layer's forward and its recompute, but deepseek's layer0
+    once (the reference does not rematerialise it)."""
+    uses = _k4_uses(cfg)
+    if cfg.family == "moe" and cfg.moe.first_dense_ff:
+        return 2 * uses - 1
+    return 2 * uses
+
+
+def _touched_params(cfg) -> int:
+    """The parameters one token's forward multiplies through: every
+    layer's matrices (the moe family's top-k routed experts, shared experts
+    and router; the hybrid's shared block once per use) and the head (the
+    LM head, or the codebook head from embeddings). The input table is a
+    lookup and is not counted (a tied table is counted once, as the
+    head)."""
+    emb = cfg.padded_vocab * cfg.d_model
+    n = cfg.n_active_params()
+    if not cfg.tie_embeddings:
+        n -= emb
+    if cfg.modality == "audio" and cfg.num_codebooks > 1:
+        n += cfg.d_model * cfg.num_codebooks * cfg.padded_vocab - emb
+    if cfg.family == "hybrid":
+        d = cfg.d_model
+        shared = 4 * d * cfg.n_heads * cfg.resolved_head_dim \
+            + 3 * d * cfg.d_ff + 2 * d
+        n += (_k4_uses(cfg) - 1) * shared
+    return n
+
+
+def _family_train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6·N·T for the N parameters one
+    token touches (``_touched_params``) over T tokens, plus causal
+    attention's 6·b·s²·H·dh per attention layer or use; the SSD's own
+    products (its chunk Grams and states) are not counted."""
+    attn = 0
+    if _k4_uses(cfg):
+        attn = 6 * batch * seq * seq * cfg.n_heads * cfg.resolved_head_dim \
+            * _k4_uses(cfg)
+    return 6 * _touched_params(cfg) * batch * seq + attn
+
+
+def _tree_bytes(tree) -> int:
+    from torch.utils._pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _train_family_cell(arch: str, cut: dict, res: dict) -> None:
+    """(a) one family cell: TRAIN_STEPS steps, then one profiled step."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.data import LMDataConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import batch_for_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import init_train_state, make_train_step
+    from torch.utils._pytree import tree_leaves
+    tag = "train_families"
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = _family_train_config(arch, **cut)
+    out = res["train_families"]["cells"][arch] = dict(
+        family=cfg.family, n_layers=cfg.n_layers, cut=cut,
+        published_layers=_family_config(arch).n_layers,
+        held_bytes=torch.cuda.memory_allocated())
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=cfg.param_dtype)
+    opt_state, comp_state = init_train_state(cfg, params)
+    torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t0,
+               param_bytes=_tree_bytes(params),
+               n_params=sum(t.numel() for t in tree_leaves(params)),
+               touched_params=_touched_params(cfg))
+    step_fn = make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
+    data = LMDataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    flops = _family_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    k4_want = _k4_per_train_step(cfg)
+    log(f"[{tag}] {arch} ({cfg.family}): {cfg.n_layers} of "
+        f"{out['published_layers']} layers, d_model {cfg.d_model}, "
+        f"{out['n_params'] / 1e9:.4f} B parameters ({16 * out['n_params'] / 1e9:.2f}"
+        f" GB at 16 bytes a parameter), {out['touched_params'] / 1e9:.4f} B "
+        f"touched a token; float32 masters, m, v "
+        f"{3 * out['param_bytes'] / 1e9:.2f} GB made in {out['init_s']:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(TRAIN_STEPS):
+        b = batch_for_step(cfg, data, i)
+        kops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = step_fn(params, opt_state, comp_state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        params, opt_state, comp_state = o.params, o.opt_state, o.comp_state
+        rows.append(dict(step=i + 1, s=wall, loss=float(o.metrics["loss"]),
+                         grad_norm=float(o.metrics["grad_norm"]),
+                         k4_launches=counts["flash_attention"]))
+        log(f"[{tag}] {arch} step {i + 1}: {1e3 * wall:.1f} ms, loss "
+            f"{rows[-1]['loss']:.5f}, grad norm {rows[-1]['grad_norm']:.5f}, "
+            f"K4 launches {counts['flash_attention']}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    ms = 1e3 * float(np.median([r["s"] for r in rows[1:]]))
+    out.update(steps=rows, step_ms_median=ms,
+               step_ms_first=1e3 * rows[0]["s"],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+               model_flops=flops,
+               mfu=flops / (ms / 1e3) / PEAK_OPS["bfloat16"],
+               k4_launches_per_step=rows[-1]["k4_launches"])
+    check(all(np.isfinite(r["loss"]) for r in rows), f"{arch}: non-finite loss")
+    check(all(r["grad_norm"] > 0 and np.isfinite(r["grad_norm"])
+              for r in rows), f"{arch}: a gradient norm is not positive and "
+          "finite")
+    check(all(r["k4_launches"] == k4_want for r in rows),
+          f"{arch}: K4 launched {[r['k4_launches'] for r in rows]} times a "
+          f"step (expected {k4_want})")
+    b = batch_for_step(cfg, data, TRAIN_STEPS)
+    prof = _train_profile(lambda: step_fn(params, opt_state, comp_state, b))
+    out["profile"] = prof
+    parts = prof["parts_us"]
+    log(f"[{tag}] {arch} at {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: "
+        f"median {ms:.1f} ms over steps 2-{TRAIN_STEPS} (first "
+        f"{out['step_ms_first']:.1f} ms) = {out['tokens_per_s']:.0f} "
+        f"tokens/s; model FLOPs {flops / 1e12:.2f} T a step = "
+        f"{100 * out['mfu']:.1f} % of the bf16 peak (N = the parameters one "
+        f"token touches); peak device memory {out['peak_bytes'] / 1e9:.2f} GB"
+        f" ({out['held_bytes'] / 1e9:.2f} GB held before); K4 {k4_want} "
+        f"launches a step; profiled step: busy {prof['busy_us'] / 1e3:.1f} ms"
+        f" of {prof['wall_us'] / 1e3:.1f} ms wall, {prof['launches']} device "
+        f"operations: K4 {parts['k4'] / 1e3:.2f} ms, the attention backward "
+        f"{prof['attention_backward_us'] / 1e3:.2f} ms, GEMMs "
+        f"{parts['gemm'] / 1e3:.2f} ms, optimizer foreach "
+        f"{parts['foreach'] / 1e3:.2f} ms, other {parts['other'] / 1e3:.2f} ms")
+    for row in prof["kernels"][:8]:
+        log(f"[{tag}]   {row['device_us'] / 1e3:9.2f} ms  x{row['calls']:<5d}"
+            f" {row['name']}")
+    del params, opt_state, comp_state, step_fn, o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_family_k4(res: dict) -> None:
+    """K4 forward at each attention cell's training shape, bf16 causal,
+    against its plain version, timed beside the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    rows = res["train_families"]["k4"] = {}
+    for arch in (MOE_ARCH, ZAMBA_ARCH, AUDIO_ARCH):
+        cfg = _family_config(arch)
+        B, Hq, Hkv, S, D = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                            TRAIN_SEQ, cfg.resolved_head_dim)
+        q, k, v = _k4_inputs((B, Hq, S, D), Hkv, torch.bfloat16, seed=21)
+        err, share = _k4_check(q, k, v, True, 0)
+        ms = cuda_ms(lambda: flash_attention(q, k, v), reps=20)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), reps=5)
+        kx = k.repeat_interleave(Hq // Hkv, dim=1)
+        vx = v.repeat_interleave(Hq // Hkv, dim=1)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kx, vx, is_causal=True), reps=20)
+        pairs = B * Hq * S * (S + 1) // 2
+        bound, by = _bound_ms(4 * D * pairs, 2 * (2 * B * Hq + 2 * B * Hkv)
+                              * S * D, "bfloat16")
+        rows[arch] = dict(shape=[B, Hq, Hkv, S, D], max_abs_err=err,
+                          tolerance_share=share, ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bound, bound_by=by)
+        log(f"[train_families] K4 at {arch}'s training shape ({B}, {Hq}, "
+            f"{S}, {D}) hkv {Hkv} bf16 causal: max|Δ| {err:.3e} ({share:.3f} "
+            f"of the tolerance); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+            f"scaled_dot_product_attention (K/V expanded) {lib:.3f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+        del q, k, v, kx, vx
+
+
+def _small_train_cfg(arch: str, **over):
+    import dataclasses
+    from repro_torch.launch.train import build_small_cfg
+    return dataclasses.replace(build_small_cfg(arch), use_pallas=True,
+                               **over)
+
+
+def _train_family_routes(res: dict) -> None:
+    """(b) K4's route against the plain route at build_small_cfg."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data import LMDataConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import batch_for_step
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.models import moe as moe_mod
+    from torch.utils._pytree import (keystr, tree_flatten_with_path,
+                                     tree_unflatten)
+
+    def record(a, disp):
+        return dict(expert=disp.expert.cpu(), keep=disp.keep.cpu(),
+                    slot=disp.slot.cpu())
+
+    def loss_and_grads(cfg, params, spec, batch):
+        leaves = [p.detach().requires_grad_() for p in params]
+        tree = tree_unflatten(leaves, spec)
+        loss = loss_fn(tree, cfg, batch.get("tokens"), batch["labels"],
+                       embeds=batch.get("embeds"))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return float(loss.detach()), grads
+
+    rows = res["train_families"]["routes"] = {}
+    for arch in TRAIN_SMALL_ARCHS:
+        cfg = _small_train_cfg(arch)
+        params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda", dtype=cfg.param_dtype)
+        flat, spec = tree_flatten_with_path(params)
+        names = [keystr(k) for k, _ in flat]
+        leaves = [v for _, v in flat]
+        data = LMDataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+        batch = {k: v.cuda() for k, v in batch_for_step(cfg, data, 0).items()}
+        plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+        with _Timed(moe_mod, "dispatch", record) as rec:
+            want_loss, want = loss_and_grads(plain_cfg, leaves, spec, batch)
+        flips = None
+        if rec.calls:
+            with _Timed(moe_mod, "dispatch", record) as free:
+                loss_and_grads(cfg, leaves, spec, batch)
+            k = cfg.moe.top_k
+            flips = sum(int(((a["expert"] != b["expert"])
+                             | (a["keep"] != b["keep"])).reshape(-1, k)
+                            .any(-1).sum())
+                        for a, b in zip(rec.calls, free.calls))
+        kops.reset_launch_counts()
+        with _Replay(rec.calls):
+            got_loss, got = loss_and_grads(cfg, leaves, spec, batch)
+        launches = kops.launch_counts()["flash_attention"]
+        worst, where, zero = 0.0, None, []
+        for name, a, b in zip(names, got, want):
+            scale = float(b.norm())
+            if scale == 0:
+                check(not a.any(), f"{arch}: {name}'s gradient is zero on "
+                      "the plain route only")
+                zero.append(name)
+                continue
+            rel = float((a - b).norm()) / scale
+            if rel > worst:
+                worst, where = rel, name
+        loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+        rows[arch] = dict(loss=got_loss, plain_loss=want_loss,
+                          loss_rel=loss_rel, grad_rel_max=worst,
+                          grad_rel_leaf=where, zero_leaves=zero,
+                          k4_launches=launches, routing_flips_free=flips,
+                          n_params=sum(t.numel() for t in leaves))
+        log(f"[train_families] (b) {arch} build_small_cfg ({cfg.n_layers} "
+            f"layers, d_model {cfg.d_model}, {rows[arch]['n_params'] / 1e6:.1f}"
+            f" M parameters, float32, {TRAIN_BATCH} x {TRAIN_SEQ}): K4 route "
+            f"({launches} launches) against the plain route: loss "
+            f"{got_loss:.7f} / {want_loss:.7f} (rel {loss_rel:.3e}); worst "
+            f"gradient leaf {where} at {worst:.3e} of its norm; zero on both "
+            f"{zero}" + ("" if flips is None else
+                         f"; routing replayed (the free K4 run's experts or "
+                         f"kept flags differ at {flips} token-layers)"))
+        # build_small_cfg keeps remat="dots", which recomputes attention
+        check(launches == _k4_per_train_step(cfg),
+              f"{arch}: K4 launched {launches} times in (b), expected "
+              f"{_k4_per_train_step(cfg)}")
+        check(loss_rel <= TRAIN_ROUTE_LOSS_RTOL,
+              f"{arch}: the K4 route's loss off by {loss_rel:.3e}")
+        check(worst <= TRAIN_ROUTE_GRAD_RTOL,
+              f"{arch}: gradient {where} off by {worst:.3e} of its norm")
+        del params, leaves, got, want
+        torch.cuda.empty_cache()
+
+
+def _train_family_driver(res: dict) -> None:
+    """(c) the launcher's driver at build_small_cfg, uninterrupted and with
+    one StepFailure, for TRAIN_DRIVER_ARCHS."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import make_driver
+    from repro_torch.runtime import StepFailure
+    rows = res["train_families"]["driver"] = {}
+    resumed = TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    for arch in TRAIN_DRIVER_ARCHS:
+        cfg = _small_train_cfg(arch)
+        runs = {}
+        for name, fail_at in (("clean", None), ("restart", TRAIN_FAIL_AT)):
+            fails = {fail_at}
+
+            def hook(step, fails=fails):
+                if step in fails:
+                    fails.discard(step)
+                    raise StepFailure(f"injected at step {step}")
+
+            with tempfile.TemporaryDirectory() as ckpt:
+                drv = make_driver(cfg, steps=TRAIN_DRIVER_STEPS,
+                                  batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                  lr=TRAIN_OPT["lr"], ckpt_dir=ckpt,
+                                  ckpt_every=TRAIN_CKPT_EVERY, device="cuda",
+                                  fault_hook=hook)
+                kops.reset_launch_counts()
+                t0 = time.perf_counter()
+                drv.run()
+                torch.cuda.synchronize()
+                runs[name] = dict(
+                    s=time.perf_counter() - t0, restarts=drv.restarts,
+                    losses=[m["loss"] for m in drv.metrics_log],
+                    launches=kops.launch_counts()["flash_attention"])
+            del drv
+            torch.cuda.empty_cache()
+        clean, rest = runs["clean"], runs["restart"]
+        want = clean["losses"][:TRAIN_FAIL_AT] + clean["losses"][resumed:]
+        exact = rest["losses"] == want
+        rows[arch] = dict(runs, bit_equal=exact)
+        log(f"[train_families] (c) {arch} build_small_cfg under TrainDriver, "
+            f"{TRAIN_DRIVER_STEPS} steps at {TRAIN_BATCH} x {TRAIN_SEQ}, "
+            f"checkpoints every {TRAIN_CKPT_EVERY}: clean {clean['s']:.1f} s "
+            f"({clean['launches']} K4 launches), with a StepFailure at step "
+            f"{TRAIN_FAIL_AT} {rest['s']:.1f} s, {rest['restarts']} restart, "
+            f"resumed at step {resumed}; losses {clean['losses'][0]:.5f} -> "
+            f"{clean['losses'][-1]:.5f}; the restarted run's "
+            f"{len(rest['losses'])} losses "
+            f"{'bit-equal to' if exact else 'differ from'} the clean run's")
+        check(rest["restarts"] == 1, f"{arch}: {rest['restarts']} restarts")
+        check(all(np.isfinite(clean["losses"])), f"{arch}: non-finite loss")
+        check(exact, f"{arch}: the restarted run's losses differ from the "
+              f"clean run's: {rest['losses']} against {want}")
+
+
+def phase_train_families(res: dict, keep: dict) -> None:
+    """Training the moe, ssm, hybrid and audio families: K4 at their
+    training shapes, (a) the four cells at full width, (b) K4's route
+    against the plain route at build_small_cfg for the six archs, (c) the
+    launcher's driver with a restart."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res["train_families"] = dict(cells={}, seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+    _train_family_k4(res)
+    for arch, cut in TRAIN_FAMILIES:
+        _train_family_cell(arch, cut, res)
+    _train_family_routes(res)
+    _train_family_driver(res)
+    keep["train_families"] = True
+
+
 # ------------------------------------------------------- the LM families
 
 def _family_model(tag: str, cfg, out: dict):
@@ -4633,6 +5056,32 @@ def _summary_train_attention(res: dict) -> dict:
                 library_backward_ms=k["library_backward_ms"])
 
 
+def _summary_train_families(res: dict) -> list[dict]:
+    """K4's rows at the training shapes of phase train_families' attention
+    cells, each with its launches in that cell's TRAIN_STEPS steps."""
+    tf = res["train_families"]
+    rows = []
+    for arch, k in tf["k4"].items():
+        cell = tf["cells"][arch]
+        launches = sum(r["k4_launches"] for r in cell["steps"])
+        rows.append(dict(
+            name="flash_attention", shape=f"train {arch} (B, Hq, Hkv, S, D) "
+            f"= {tuple(k['shape'])} bf16 causal", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:97",
+            launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            library_fn="scaled_dot_product_attention(is_causal), K/V "
+            "expanded", launches_per_train_step=cell["k4_launches_per_step"]))
+        log(f"[summary] K4 training shape of {arch} {tuple(k['shape'])}: "
+            f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, SDPA "
+            f"{k['library_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}); {cell['k4_launches_per_step']} launches a "
+            f"step, {launches} in the cell")
+    return rows
+
+
 def phase_summary(res: dict, keep: dict) -> None:
     """The kernel rows of the paths this run drove."""
     rows = []
@@ -4649,6 +5098,8 @@ def phase_summary(res: dict, keep: dict) -> None:
         rows.append(_summary_attention(res))
     if "train" in keep:
         rows.append(_summary_train_attention(res))
+    if "train_families" in keep:
+        rows.extend(_summary_train_families(res))
     if "families" in keep:
         rows.extend(_summary_families(res))
     if "samplers" in res or "serve" in res:
@@ -4788,6 +5239,8 @@ def main() -> int:
             phase_lm(res, keep)
         elif name == "train":
             phase_train(res, keep)
+        elif name == "train_families":
+            phase_train_families(res, keep)
         elif name == "families":
             phase_families(res, keep)
         elif name == "rls":

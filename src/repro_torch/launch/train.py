@@ -3,12 +3,14 @@
 Trains the reduced (~100M) variant of the arch (``build_small_cfg``; the
 published config with ``--full-config``) on the one device (the card by
 default, ``--device cpu`` through the plain versions): float32 master
-weights from seed 0, the synthetic token stream, ``make_train_step`` under
-the fault-tolerant ``TrainDriver`` with checkpoints every ``--ckpt-every``
+weights from seed 0, the synthetic token stream (``batch_for_step``: for
+the vision / audio archs, N(0, 1) embeddings in place of the tokens and,
+for the codebook head, the labels repeated over the codebooks, as the
+reference's launcher feeds them), ``make_train_step`` under the
+fault-tolerant ``TrainDriver`` with checkpoints every ``--ckpt-every``
 steps (it resumes from the newest complete checkpoint in ``--ckpt-dir``).
-The reference shards over a host mesh; the port has one device until
-ROADMAP item 9. The dense text archs train; the moe, ssm and hybrid
-families and the vision / audio archs raise (ROADMAP item 12.3b).
+Every family trains. The reference shards over a host mesh; the port has
+one device until ROADMAP item 9.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ import dataclasses
 import logging
 import os
 import tempfile
+
+import numpy as np
+import torch
 
 from ..configs import get_config
 from ..data import LMDataConfig, lm_batch
@@ -28,8 +33,8 @@ from ..runtime import (DriverConfig, TrainDriver, init_train_state,
 
 def build_small_cfg(arch: str, **over):
     """~100M-scale variant of an arch for end-to-end examples, the
-    reference's reduction (``launch/serve.py`` serves every family at it;
-    this launcher trains the dense text family, ROADMAP item 12.3b)."""
+    reference's reduction for every family (``launch/serve.py`` serves at
+    it, and this launcher trains at it)."""
     cfg = get_config(arch)
     small = dict(n_layers=min(cfg.n_layers, 8),
                  d_model=512,
@@ -55,13 +60,34 @@ def build_small_cfg(arch: str, **over):
     return dataclasses.replace(cfg, **small)
 
 
+def batch_for_step(cfg, data_cfg: LMDataConfig, step: int) -> dict:
+    """The launcher's batch for ``step``, a pure function of the step on
+    the CPU: ``lm_batch`` for the text archs; for the vision / audio archs
+    float32 N(0, 1) embeddings (b, s, d_model) from a generator seeded by
+    (7, step) in place of the tokens (the reference folds the step into
+    key 7), and the labels, repeated over the codebooks for the codebook
+    head ((b, s, codebooks))."""
+    b = lm_batch(data_cfg, step)
+    if cfg.modality not in ("vision", "audio"):
+        return b
+    key = np.random.SeedSequence([7, step]).generate_state(1, np.uint64)[0]
+    g = torch.Generator().manual_seed(int(key))
+    emb = torch.randn((data_cfg.global_batch, data_cfg.seq_len, cfg.d_model),
+                      generator=g)
+    lab = b["labels"]
+    if cfg.modality == "audio":
+        lab = lab[..., None].expand(lab.shape + (cfg.num_codebooks,))
+    return {"embeds": emb, "labels": lab}
+
+
 def make_driver(cfg, *, steps: int, batch: int, seq: int, lr: float,
                 ckpt_dir: str, ckpt_every: int, compress_grads: bool = False,
                 microbatches: int = 1, device="cuda",
                 fault_hook=None) -> TrainDriver:
     """The launcher's driver: masters in ``cfg.param_dtype`` from seed 0,
     AdamW with the launcher's schedule (warmup ``max(steps // 20, 10)``),
-    batches ``lm_batch(step)``, ``fault_hook`` as ``TrainDriver``'s."""
+    batches ``batch_for_step(cfg, data_cfg, step)``, ``fault_hook`` as
+    ``TrainDriver``'s."""
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps,
                           warmup_steps=max(steps // 20, 10))
     data_cfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -80,7 +106,8 @@ def make_driver(cfg, *, steps: int, batch: int, seq: int, lr: float,
         DriverConfig(total_steps=steps, ckpt_dir=ckpt_dir,
                      ckpt_every=ckpt_every),
         driver_step, (params, opt_state, comp_state),
-        lambda step: lm_batch(data_cfg, step), fault_hook=fault_hook)
+        lambda step: batch_for_step(cfg, data_cfg, step),
+        fault_hook=fault_hook)
 
 
 def main(argv: list[str] | None = None) -> TrainDriver:

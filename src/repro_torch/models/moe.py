@@ -24,10 +24,16 @@ experts top-6: of two slots that pick one expert, the later is dropped.
 
 Ties: bf16 router logits often tie, and ``jax.lax.top_k`` puts the lower
 expert index first; a stable descending sort does the same (``torch.topk``
-promises no order for ties). No step sums with atomics: the kept
+promises no order for ties). No step sums with atomics, forward or
+backward, so training on the card is bit-reproducible: the kept
 assignments have distinct (expert, slot) pairs, so a plain ``index_copy_``
-writes them (the dropped ones into one spare row that nothing reads), and
-the combine adds a token's k outputs in rank order.
+writes them (the dropped ones into one spare row that nothing reads; its
+backward is a gather), and the combine adds a token's k outputs in rank
+order. Each token's k copies come from an ``expand`` (whose backward is a
+sum over the k ranks), not from an ``index_select`` of the token rows,
+whose backward would scatter-add with atomics on the card; the combine's
+``index_select`` scatters back only onto distinct kept slots, besides the
+dropped assignments' exact zeros (their gate is 0).
 
 The Switch auxiliary load-balance loss e·Σ_e frac_e·mean(prob_e) comes
 back beside the output (frac from the first arg-max of each token).
@@ -133,10 +139,9 @@ def moe_block(params: dict, cfg: ModelConfig, x: Tensor) -> MoEOut:
     # the dropped assignments' writes and is never read
     row = torch.arange(G, device=x.device)[:, None] * cap + disp.slot
     row = torch.where(disp.keep, row, G * cap).reshape(-1)
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = torch.zeros((e * (G * cap + 1), d), dtype=dt, device=x.device)
     buf.index_copy_(0, disp.expert.reshape(-1) * (G * cap + 1) + row,
-                    xt.index_select(0, tok))
+                    xt[:, None].expand(t, k, d).reshape(t * k, d))
     a = buf.view(e, G * cap + 1, d)[:, :G * cap]
 
     h = F.silu(torch.bmm(a, params["w_gate"].to(dt))) \

@@ -15,7 +15,7 @@ Families:
 Entry points:
   init_model(cfg, generator, device=, dtype=)    → params
   forward(params, cfg, tokens | embeds)          → ForwardOut(logits, aux)
-  loss_fn(params, cfg, tokens, labels)           → scalar CE (training)
+  loss_fn(params, cfg, tokens, labels[, embeds]) → scalar CE (training)
   init_decode_state(cfg, batch, max_len)         → DecodeCaches
   decode_step(params, cfg, tokens, state[, embeds]) → logits, new state
 
@@ -37,10 +37,12 @@ scaled by √d_model in the dense, vlm and audio families only, as the
 reference does.
 
 ``forward`` and ``decode_step`` run under ``torch.no_grad``; ``loss_fn``
-takes gradients through ``forward_hidden``, each layer rematerialised as
-``cfg.remat`` says (``_remat``), the LM head chunked (``head_chunk``).
-Training the moe, ssm and hybrid families or from embeddings is ROADMAP
-item 12.3b and raises.
+takes gradients through ``forward_hidden`` in every family, rematerialised
+as ``cfg.remat`` says (``_remat``) where the reference's scans are: each
+dense and MoE layer (not deepseek's ``layer0``), each SSM layer, each
+hybrid group of ``shared_attn_every`` SSM layers with its shared block
+(not the tail); the LM head (or the codebook head) chunked
+(``head_chunk``).
 
 ``cfg.attn_approx="nystrom_rls"`` runs the paper's landmark attention in
 every attention layer (``attention.attention_block``) and its RLS decode:
@@ -72,24 +74,12 @@ from .ssm import (SSMState, init_ssm, init_ssm_state, ssm_block,
                   ssm_decode_step)
 
 FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
-TRAIN_TODO = ("training is ported for the dense text family only: the moe, "
-              "ssm and hybrid families and training from embeddings (the "
-              "vision / audio front ends) are ROADMAP item 12.3b")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse a family that the model does not know."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse the configs that ``loss_fn`` does not train yet."""
-    check_supported(cfg)
-    if cfg.family != "dense" or cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} / modality "
-            f"{cfg.modality!r}: {TRAIN_TODO}")
 
 
 # --------------------------------------------------------------------- init
@@ -281,6 +271,23 @@ def _ssm_layer(cfg: ModelConfig, p: dict, h: Tensor) -> Tensor:
     return h + ssm_block(p["ssm"], cfg, rmsnorm(p["ln"], h, cfg.norm_eps))
 
 
+def _moe_layer(cfg: ModelConfig, p: dict, h: Tensor,
+               positions: Tensor) -> tuple[Tensor, Tensor]:
+    """One MoE layer: (h, its Switch aux loss)."""
+    h = h + attention_block(p["attn"], cfg,
+                            rmsnorm(p["ln1"], h, cfg.norm_eps), positions)
+    out = moe_block(p["moe"], cfg, rmsnorm(p["ln2"], h, cfg.norm_eps))
+    return h + out.y, out.aux_loss
+
+
+def _hybrid_group(cfg: ModelConfig, layers: list[dict], shared: dict,
+                  h: Tensor, positions: Tensor) -> Tensor:
+    """A hybrid group: its SSM layers, then the shared block."""
+    for p in layers:
+        h = _ssm_layer(cfg, p, h)
+    return _dense_block(cfg, shared, h, positions, 0)
+
+
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor | None = None,
                    embeds: Tensor | None = None,
                    positions: Tensor | None = None) -> HiddenOut:
@@ -302,22 +309,23 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor | None = None,
     elif fam == "moe":
         if "layer0" in params:
             h = _dense_block(cfg, params["layer0"], h, positions, 0)
+        block = _remat(cfg, _moe_layer)
         for p in params["layers"]:
-            h = h + attention_block(p["attn"], cfg,
-                                    rmsnorm(p["ln1"], h, cfg.norm_eps),
-                                    positions)
-            out = moe_block(p["moe"], cfg, rmsnorm(p["ln2"], h, cfg.norm_eps))
-            h = h + out.y
-            aux = aux + out.aux_loss
+            h, aux_l = block(cfg, p, h, positions)
+            aux = aux + aux_l
     elif fam == "ssm":
+        block = _remat(cfg, _ssm_layer)
         for p in params["layers"]:
-            h = _ssm_layer(cfg, p, h)
+            h = block(cfg, p, h)
     else:   # hybrid
         n_groups, every, _ = _hybrid_groups(cfg)
-        for i, p in enumerate(params["layers"]):
+        layers = params["layers"]
+        block = _remat(cfg, _hybrid_group)
+        for g in range(n_groups):
+            h = block(cfg, layers[g * every:(g + 1) * every],
+                      params["shared_attn"], h, positions)
+        for p in layers[n_groups * every:]:
             h = _ssm_layer(cfg, p, h)
-            if i < n_groups * every and (i + 1) % every == 0:
-                h = _dense_block(cfg, params["shared_attn"], h, positions, 0)
     return HiddenOut(rmsnorm(params["ln_f"], h, cfg.norm_eps), aux)
 
 
@@ -338,30 +346,35 @@ def forward(params: dict, cfg: ModelConfig, tokens: Tensor | None = None,
 def _ce_chunk(cfg: ModelConfig, params: dict, h_c: Tensor,
               labels_c: Tensor) -> Tensor:
     """Summed cross-entropy over one token chunk; its logits never leave
-    the chunk. The target logit is taken with ``gather``, which equals the
-    reference's masked sum over the vocabulary exactly (that sum adds only
-    zeros besides the target)."""
+    the chunk. h_c (c, d); labels_c (c,), or (c, codebooks) through the
+    codebook head (softcapped as the LM head is). The target logit is
+    taken with ``gather``, which equals the reference's masked sum over
+    the vocabulary exactly (that sum adds only zeros besides the
+    target)."""
     logits = _head(params, cfg, h_c)
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, labels_c.long()[:, None])[:, 0]
+    tgt = logits.gather(-1, labels_c.long()[..., None])[..., 0]
     return torch.sum(lse - tgt)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
+def loss_fn(params: dict, cfg: ModelConfig, tokens: Tensor | None,
+            labels: Tensor, embeds: Tensor | None = None,
             aux_weight: float = 0.01, head_chunk: int = 16_384) -> Tensor:
-    """Next-token cross-entropy (mean over tokens) with a sequence-chunked
-    LM head: the (tokens × vocab) float32 logits are the largest training
-    buffer at a 200k vocabulary, so the head runs ``head_chunk`` tokens at
-    a time (one chunk when the token count is not a multiple), each chunk
-    rematerialised in the backward. tokens, labels: (b, s) integers. The
-    dense text family only (``check_trainable``)."""
-    check_trainable(cfg)
-    hid = forward_hidden(params, cfg, tokens)
+    """Next-token cross-entropy (mean over tokens, and over codebooks when
+    the labels carry them) plus ``aux_weight`` times the MoE families'
+    Switch loss, with a sequence-chunked LM head: the (tokens × vocab)
+    float32 logits are the largest training buffer at a 200k vocabulary,
+    so the head runs ``head_chunk`` tokens at a time (one chunk when the
+    token count is not a multiple), each chunk rematerialised in the
+    backward. tokens (b, s) integers, or ``embeds`` (b, s, d) for the
+    vision / audio configs; labels (b, s), or (b, s, codebooks) for the
+    codebook head."""
+    hid = forward_hidden(params, cfg, tokens, embeds)
     h = hid.h
     b, s, d = h.shape
     t = b * s
     h2 = h.reshape(t, d)
-    lab = labels.reshape(t)
+    lab = labels.reshape((t,) + tuple(labels.shape[2:]))
     c = min(head_chunk, t)
     if t % c:
         c = t  # odd sizes: single chunk
@@ -372,7 +385,8 @@ def loss_fn(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
         for lo in range(0, t, c):
             total = total + checkpoint(_ce_chunk, cfg, params, h2[lo:lo + c],
                                        lab[lo:lo + c], use_reentrant=False)
-    return total / t + aux_weight * hid.aux_loss
+    denom = t * (cfg.num_codebooks if lab.ndim > 1 else 1)
+    return total / denom + aux_weight * hid.aux_loss
 
 
 # ------------------------------------------------------------------ decode

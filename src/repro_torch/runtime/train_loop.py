@@ -9,8 +9,13 @@ as the reference's, but it takes ownership of ``params``, ``opt_state`` and
 residuals in place (``optim.adamw``) and returns the same trees, so a
 caller that needs the old values keeps a copy. It leaves the parameters'
 ``requires_grad`` as it found them. The gradients are local to the step (``torch.autograd.grad``, no
-``.grad`` is kept) and are dropped when it returns. The batch's
-``tokens`` and ``labels`` (b, s) move to the parameters' device.
+``.grad`` is kept) and are dropped when it returns; a leaf that the loss
+does not reach (the token table of a config trained from embeddings) gets
+a zero gradient, as ``jax.value_and_grad`` gives it. The batch holds
+``tokens`` and ``labels`` (b, s), or, for the vision / audio configs,
+``embeds`` (b, s, d) and ``labels`` ((b, s, codebooks) through the
+codebook head), as the reference's; every entry moves to the parameters'
+device, and microbatching splits each along its first axis.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..configs.base import ModelConfig
 from ..models import loss_fn
-from ..models.transformer import check_trainable
+from ..models.transformer import check_supported
 from ..optim import (AdamWConfig, AdamWState, adamw_update, compressed_grads,
                      init_adamw, init_compression)
 
@@ -40,22 +45,28 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     """Build the train step. ``num_microbatches > 1`` folds the global batch
     into sequential microbatches (gradient accumulation in float32) —
     memory for throughput."""
-    check_trainable(cfg)
+    check_supported(cfg)
+    embeds = cfg.modality in ("vision", "audio")
 
     def compute_grads(leaves: list[Tensor], spec, batch: dict
                       ) -> tuple[Tensor, list[Tensor]]:
         # aliases of the caller's tensors that record gradients
         leaves = [p.detach().requires_grad_() for p in leaves]
         params = tree_unflatten(leaves, spec)
-        loss = loss_fn(params, cfg, batch["tokens"], batch["labels"])
-        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+        if embeds:
+            loss = loss_fn(params, cfg, None, batch["labels"],
+                           embeds=batch["embeds"])
+        else:
+            loss = loss_fn(params, cfg, batch["tokens"], batch["labels"])
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), list(grads)
 
     def train_step(params: Any, opt_state: AdamWState, comp_state: Any,
                    batch: dict) -> TrainStepOut:
         leaves, spec = tree_flatten(params)
         dev = leaves[0].device
-        batch = {k: torch.as_tensor(batch[k]).to(dev)
-                 for k in ("tokens", "labels")}
+        batch = {k: torch.as_tensor(x).to(dev) for k, x in batch.items()}
         if num_microbatches > 1:
             micro = {k: x.reshape((num_microbatches,
                                    x.shape[0] // num_microbatches)

@@ -417,6 +417,26 @@ def test_two_train_steps_match_jax(model, micro, comp):
 
 
 def test_train_step_refuses_embeddings_front_ends():
-    cfg = get_config("pixtral-12b")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12.3"):
-        make_train_step(cfg, AdamWConfig())
+    """The vision front end trains from embeddings since item 12.3b:
+    ``make_train_step`` takes pixtral's batch of ``embeds`` and ``labels``
+    (tests/test_torch_train_families.py holds it to the reference), the
+    token table that the loss does not reach gets a zero gradient (so its
+    moments stay zero), and a batch without embeddings is refused."""
+    cfg = dataclasses.replace(get_config("pixtral-12b"), **dict(
+        OVER, use_pallas=False))
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu",
+                        dtype=cfg.param_dtype)
+    opt, comp = init_train_state(cfg, params)
+    step = make_train_step(cfg, AdamWConfig(**OPT))
+    g = torch.Generator().manual_seed(1)
+    batch = {"embeds": torch.randn((B, S, cfg.d_model), generator=g),
+             "labels": torch.randint(0, cfg.vocab_size, (B, S), generator=g)}
+    out = step(params, opt, comp, batch)
+    assert np.isfinite(float(out.metrics["loss"]))
+    assert float(out.metrics["grad_norm"]) > 0
+    assert not out.opt_state.m["embed"]["table"].any()
+    assert not out.opt_state.v["embed"]["table"].any()
+    assert out.opt_state.m["unembed"]["table"].abs().max() > 0
+    with pytest.raises(KeyError, match="embeds"):
+        step(params, opt, comp, {"tokens": batch["labels"],
+                                 "labels": batch["labels"]})
